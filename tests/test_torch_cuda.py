@@ -1,0 +1,140 @@
+"""The CUDA kernels on the card against their plain PyTorch versions.
+
+Marked ``gpu``; the ``card`` fixture skips every test when there is no CUDA
+device.  The file imports no jax, so on a machine without it run
+
+    python -m pytest -m gpu --noconftest tests/test_torch_cuda.py
+
+Tolerance rtol 1e-5, atol 1e-4 (the reference's kernel tolerance; both
+sides sum in fp32, TF32 switched off for the plain versions).  Two tile
+plans of a kernel must give bit-identical outputs, since each output's
+reduction runs in one fixed order whatever the tiling.
+"""
+import pytest
+import torch
+
+from repro_torch import deploy
+from repro_torch.core import binarize as bz
+from repro_torch.core.binlinear import QuantConfig
+from repro_torch.kernels import binary_conv as bck
+from repro_torch.kernels import binary_dwconv as bdw
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+from repro_torch.models import cnn
+
+pytestmark = pytest.mark.gpu
+
+RTOL, ATOL = 1e-5, 1e-4
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _signs(gen, shape):
+    return (torch.randint(0, 2, shape, generator=gen, dtype=torch.int8) * 2 - 1)
+
+
+def _alpha(gen, shape):
+    return torch.rand(shape, generator=gen) * 0.5 + 0.1
+
+
+@pytest.mark.parametrize("T,K,N,M,group_size,m_active", [
+    (5, 13, 7, 2, None, None), (64, 1350, 340, 2, 675, 1), (16, 24, 40, 3, 12, 2),
+    (16, 1024, 1000, 2, None, None), (3, 490, 43, 2, None, 2)])
+def test_binary_matmul_kernel_matches_plain(card, T, K, N, M, group_size, m_active):
+    gen = torch.Generator().manual_seed(T * K + N)
+    gs = group_size or K
+    x = torch.randn(T, K, generator=gen).to(card)
+    packed = bz.pack_bits(bz.pad_rows_to_byte(_signs(gen, (M, K, N)))).to(card)
+    alpha = _alpha(gen, (M, K // gs, N)).to(card)
+    want = ref.binary_matmul_ref(x, packed, alpha, K=K, group_size=gs, m_active=m_active)
+    before = ops.launch_counts()["binary_matmul"]
+    outs = [ops.binary_matmul(x, packed, alpha, K=K, group_size=gs, m_active=m_active,
+                              plan=plan) for plan in ((16, 64), (4, 32))]
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["binary_matmul"] - before == 2
+    torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("B,H,W,C,D,kh,kw,stride,padding,pool,M,m_active,relu,group_size", [
+    (5, 48, 48, 3, 5, 7, 7, 1, "VALID", 2, 2, None, True, None),    # conv1
+    (3, 21, 21, 5, 150, 4, 4, 1, "VALID", 6, 2, 1, True, None),     # conv2
+    (3, 224, 224, 3, 32, 3, 3, 2, "SAME", 1, 2, None, True, None),  # stem
+    (3, 7, 7, 1024, 1024, 1, 1, 1, "VALID", 1, 2, None, True, None),  # pw12
+    (2, 8, 8, 5, 6, 4, 4, 1, "SAME", 2, 3, 2, False, 20),           # groups span taps
+    (1, 6, 6, 12, 9, 1, 1, 1, "VALID", 1, 2, None, False, 6)])
+def test_binary_conv_kernel_matches_plain(card, B, H, W, C, D, kh, kw, stride, padding,
+                                          pool, M, m_active, relu, group_size):
+    gen = torch.Generator().manual_seed(B * H * C + D)
+    K = kh * kw * C
+    gs = group_size or K
+    x = torch.randn(B, H, W, C, generator=gen).to(card)
+    tap = bck.pack_taps(_signs(gen, (M, K, D)), kh, kw, C).to(card)
+    alpha = _alpha(gen, (M, K // gs, D)).to(card)
+    bias = torch.randn(D, generator=gen).to(card)
+    kw_ = dict(kh=kh, kw=kw, stride=stride, padding=padding, pool=pool,
+               m_active=m_active, relu=relu)
+    want = ref.fused_binary_conv_relu_pool_ref(x, tap, alpha, bias=bias, **kw_)
+    outs = [ops.binary_conv2d(x, tap, alpha, bias, plan=plan, **kw_)
+            for plan in ((64, 64), (16, 32))]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("B,H,W,C,stride,M,m_active,relu", [
+    (3, 112, 112, 32, 1, 2, None, True), (3, 14, 14, 512, 2, 2, 1, True),
+    (2, 9, 9, 12, 1, 3, 2, False), (1, 7, 7, 1024, 1, 2, None, True)])
+def test_binary_dwconv_kernel_matches_plain(card, B, H, W, C, stride, M, m_active, relu):
+    gen = torch.Generator().manual_seed(B * H + C)
+    x = torch.randn(B, H, W, C, generator=gen).to(card)
+    tap = bdw.pack_dw_taps(_signs(gen, (M, 9, C))).to(card)
+    alpha = _alpha(gen, (M, C)).to(card)
+    bias = torch.randn(C, generator=gen).to(card)
+    kw_ = dict(kh=3, kw=3, stride=stride, m_active=m_active, relu=relu)
+    want = ref.binary_dwconv_relu_ref(x, tap, alpha, bias=bias, **kw_)
+    outs = [ops.binary_dwconv2d(x, tap, alpha, bias, plan=plan, **kw_)
+            for plan in ((64, 32), (256, 128))]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_cnn_a_program_runs_its_kernels(card):
+    gen = torch.Generator().manual_seed(0)
+    program = deploy.compile(cnn.init_cnn_a(gen, device=card), "cnn_a",
+                             QuantConfig(mode="binary"), (8, 48, 48, 3), device=card)
+    x = torch.randn(8, 48, 48, 3, generator=gen).to(card)
+    for m in (None, 1, [1, 2, 1, 2, 1]):
+        ops.reset_launch_counts()
+        picks = ops.plan_pick_count()
+        got = deploy.execute(program, x, m)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == {"binary_conv": 2, "binary_dwconv": 0, "binary_matmul": 3}
+        assert ops.plan_pick_count() == picks
+        want = deploy.execute_reference(program, x, m)
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_launchers_refuse_bad_arguments(card):
+    x = torch.zeros(1, 8, 8, 8, device=card)
+    tap = torch.zeros(2, 9, 1, 16, dtype=torch.uint8, device=card)
+    alpha = torch.ones(2, 1, 16, device=card)
+    bias = torch.zeros(16, device=card)
+    args = dict(kh=3, kw=3, stride=1, pool=1, m_active=2, relu=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bck.launch(x.cpu(), tap, alpha, bias, plan=(64, 64), **args)
+    with pytest.raises(ValueError, match="float32"):
+        bck.launch(x.double(), tap, alpha, bias, plan=(64, 64), **args)
+    with pytest.raises(ValueError, match="plan"):
+        bck.launch(x, tap, alpha, bias, plan=(6, 64), **args)
+    with pytest.raises(ValueError, match="m_active"):
+        bck.launch(x, tap, alpha, bias, plan=(64, 64), **dict(args, m_active=3))
