@@ -23,6 +23,12 @@ source, all at once) and runs, each phase failing loudly:
      version and one PyTorch library call for the same core function
      (timed here only, never called by the port), each from CUDA events
      around a CUDA graph of repeated calls; per-forward time of each network.
+     ``ms`` is the kernel's wrapper alone, the same work as the library
+     call; ``instr_ms`` the whole instruction (a linear one adds its bias
+     and ReLU as two more launches);
+  5. torch.profiler over three warm execute calls of each network: device
+     time by kernel name (top 10) and the device's idle share over the
+     window; the chrome traces go to ``chiprun_out/trace_<net>.json``.
 
 Weights are random, drawn from a seeded generator.  The logits of phases 2
 and 3 are compared with rtol 1e-4 and atol 1e-4·max|logit| (a relative
@@ -74,7 +80,7 @@ TPU_KERNELS = {  # name -> (CUDA source, TPU kernel it replaces)
                       "src/repro/kernels/binary_matmul.py:92"),
 }
 KERNEL_OF = {"conv": "binary_conv", "dwconv": "binary_dwconv", "linear": "binary_matmul"}
-ALT_PLAN = {"conv": (16, 32), "dwconv": (256, 64), "linear": (16, 64)}
+ALT_PLAN = {"conv": (16, 32), "dwconv": (2, 256), "linear": (2, 64)}
 EXPECTED_LAUNCHES = {
     "cnn_a": {"binary_conv": 2, "binary_dwconv": 0, "binary_matmul": 3},
     "mobilenet": {"binary_conv": 14, "binary_dwconv": 13, "binary_matmul": 1},
@@ -247,31 +253,92 @@ def work(instr, batch: int) -> tuple[int, int]:
 def time_kernels(programs: dict, gen: torch.Generator, dev) -> tuple[list, dict]:
     """Phase 4 per instruction: kernel, plain version, library call, bound."""
     rows = []
-    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0}
-              for k in TPU_KERNELS}
+    totals = {k: {"ms": 0.0, "instr_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                  "bytes": 0, "flops": 0} for k in TPU_KERNELS}
     for arch, program in programs.items():
         batch = program.input_shape[0]
         for instr in program.instrs:
             kern = KERNEL_OF[instr.kind]
             x = layer_input(instr, batch, gen, dev)
             prog1 = single(instr, instr.plan, batch)
-            ms = graph_ms(lambda: deploy.execute(prog1, x))
+            instr_ms = graph_ms(lambda: deploy.execute(prog1, x))
+            # a linear instruction adds its bias and ReLU outside the kernel:
+            # time the kernel alone, the same work as x @ W_hat
+            ms = graph_ms(lambda: ops.binary_matmul(
+                x, instr.B_packed, instr.alpha, K=instr.K, group_size=instr.group_size,
+                plan=instr.plan)) if instr.kind == "linear" else instr_ms
             plain_ms = graph_ms(lambda: deploy.execute_reference(prog1, x), reps=5)
             lib_ms = graph_ms(library_call(instr, x))
             nbytes, flops = work(instr, batch)
             bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
             rows.append({"net": arch, "layer": instr.name, "kernel": kern,
                          "in_shape": [batch] + list(instr.stats.in_shape[1:]),
-                         "plan": list(instr.plan), "ms": ms, "plain_ms": plain_ms,
+                         "plan": list(instr.plan), "ms": ms, "instr_ms": instr_ms,
+                         "plain_ms": plain_ms,
                          "library_ms": lib_ms, "bound_ms": bound, "bytes": nbytes,
                          "flops": flops})
-            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                             ("bytes", nbytes), ("flops", flops)):
+            for key, val in (("ms", ms), ("instr_ms", instr_ms), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("bytes", nbytes), ("flops", flops)):
                 totals[kern][key] += val
             print(f"  {arch} {instr.name} {kern} in {rows[-1]['in_shape']} plan "
-                  f"{tuple(instr.plan)}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+                  f"{tuple(instr.plan)}: kernel {ms:.5f} ms, instruction {instr_ms:.5f} ms, "
+                  f"plain {plain_ms:.5f} ms, "
                   f"library {lib_ms:.5f} ms, bound {bound:.5f} ms")
     return rows, totals
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_split(events: list) -> dict:
+    """Device time by kernel name and the device's idle share, from the
+    ``traceEvents`` of a chrome trace.  The window runs from the first span
+    (host or device) to the end of the last device span; busy time is the
+    union of the device spans."""
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in spans if e.get("cat") in DEVICE_CATS]
+    if not device:
+        fail("the profiler recorded no device time")
+    by_name: dict[str, float] = {}
+    for e in device:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+    busy, reach = 0.0, -math.inf
+    for start, stop in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                              for e in device):
+        if stop > reach:
+            busy += stop - max(start, reach)
+            reach = stop
+    window = reach - min(float(e["ts"]) for e in spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return {"window_us": window, "busy_us": busy, "idle_share": 1.0 - busy / window,
+            "device_us_by_name": dict(top)}
+
+
+def profile_forward(arch: str, program, x: torch.Tensor, out_dir: Path,
+                    calls: int = 3) -> dict:
+    """Phase 5: torch.profiler over ``calls`` warm execute calls, after one
+    traced warm-up call that is dropped (the tracer's first launch pays for
+    its buffers); writes the chrome trace to ``out_dir`` and prints the ten
+    kernels with the most device time and the device's idle share over the
+    window."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    path = out_dir / f"trace_{arch}.json"
+    deploy.execute(program, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
+        for _ in range(1 + calls):
+            deploy.execute(program, x)
+            torch.cuda.synchronize()
+            prof.step()
+    split = device_split(json.loads(path.read_text())["traceEvents"])
+    print(f"phase 5: {arch} profiler over {calls} execute calls: window "
+          f"{split['window_us'] / 1e3:.4f} ms, device busy {split['busy_us'] / 1e3:.4f} ms, "
+          f"idle share {split['idle_share']:.4f}; trace {path.relative_to(ROOT)}")
+    for name, us in list(split["device_us_by_name"].items())[:10]:
+        print(f"  {us / calls / 1e3:.5f} ms per call  {name[:110]}")
+    return split
 
 
 def main() -> int:
@@ -332,6 +399,11 @@ def main() -> int:
               f"{forward[arch]['execute_ms']:.4f} ms, execute_reference "
               f"{forward[arch]['execute_reference_ms']:.4f} ms (host work included)")
 
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    profiles = {arch: profile_forward(arch, program, inputs[arch], out_dir)
+                for arch, program in programs.items()}
+
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
         tot = totals[name]
@@ -342,12 +414,11 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": tot["library_ms"]})
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
+            "library_ms": tot["library_ms"], "instr_ms": tot["instr_ms"]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
-         "kernels": kernels, "layers": rows, "forward": forward}, indent=1))
+         "kernels": kernels, "layers": rows, "forward": forward, "profiles": profiles},
+        indent=1))
     print("timings: ms, plain_ms, library_ms and bound_ms sum one forward of CNN-A "
           "(batch 64) and one of MobileNetV1-224 (batch 16); launches counts phases 2 "
           "and 3 (three calls of each network)")

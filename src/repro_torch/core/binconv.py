@@ -24,6 +24,19 @@ def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def conv_geometry(H: int, W: int, kh: int, kw: int, stride: int,
+                  padding: str) -> tuple[tuple[int, int], tuple[int, int]]:
+    """``((pad_top, pad_left), (U, V))`` of a conv over an ``H x W`` map: the
+    low-side pads ``pad_nhwc`` would add and the output size, computed
+    without padding anything (the depth-wise kernel masks its border taps)."""
+    if padding == "VALID":
+        return (0, 0), ((H - kh) // stride + 1, (W - kw) // stride + 1)
+    if padding != "SAME":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    (pt, pb), (pl, pr) = same_pads(H, kh, stride), same_pads(W, kw, stride)
+    return (pt, pl), ((H + pt + pb - kh) // stride + 1, (W + pl + pr - kw) // stride + 1)
+
+
 def pad_nhwc(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str) -> torch.Tensor:
     """Resolve ``padding`` ("SAME" | "VALID") on an NHWC tensor."""
     if padding == "VALID":

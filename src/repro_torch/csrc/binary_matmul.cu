@@ -12,83 +12,223 @@
 //
 // What bounds it on the H100: at the deployment shapes (T = 16..64 rows,
 // K <= 1350, N <= 1000) one call does 2*T*K*N <= 60 MFLOP (< 1 us at the
-// 67 TFLOP/s fp32 peak) and moves < 1 MB (< 0.3 us at 3.35 TB/s), so launch
-// latency and the serial reduction over K, not bytes or FLOPs, set its time.
+// 67 TFLOP/s fp32 peak) and moves < 1 MB (< 0.3 us at 3.35 TB/s), so
+// latency sets its time: the serial reduction over K, and the loads that
+// feed it.
 //
-// Design: one thread per output element, threads along N first, so a warp
-// reads 32 neighbouring packed bytes (one coalesced load) per 8 reduction
-// rows, and the 8 x values of those rows as broadcasts from L1, all 8 in
-// flight at once unless a group ends inside the byte.  Nothing is staged
-// in shared memory and there is no barrier: at these small T the card is
-// filled by T*N independent threads, not by reuse.  Each output's sum runs in one
-// fixed order (level, then k; per group an fp32 partial sum scaled by its
-// alpha at the group's end), with no split-K and no atomics, so every tile
-// plan gives bit-identical results.  Masks cover ragged T, N below the tile,
-// K not a multiple of 8 and m_active < M without padding any buffer.
+// Design: the reduction is split into KSPLIT chunks of byte rows whose
+// bounds depend on K alone (never on the tile plan).  A block is cols
+// lanes along N by KSPLIT rows of threads, one chunk per row, so the
+// chains are KSPLIT times shorter and KSPLIT times more warps are in flight.
+// The levels are folded into one weight per k before the rows see it,
+//   w[k, n] = sum_{m < m_active} alpha[m, g(k), n] * B_m[k, n]   (m in order),
+// so each k costs m_active FMAs per column plus one FMA per row, not
+// m_active per row, and x is read once for all levels.  Each thread keeps
+// a register tile of R output rows for one column; the packed bytes of its
+// column (one coalesced load across the warp's 32 neighbouring columns per
+// level) and its group's alphas (the next group's fetched ahead) sit in
+// registers.  x is staged per warp through shared memory 32 k at a time
+// (one coalesced load per row, the next tile's loads issued before the
+// current tile's FMAs) and read back as 16-byte broadcasts.  Each output's
+// sum runs over its chunk's k in order; the KSPLIT partial sums then meet
+// in shared memory and are added in chunk order by one thread per output.
+// No atomics: every plan gives bit-identical outputs.  Masks cover ragged
+// T, N below the block, K not a multiple of 8, group_size not a multiple of
+// 8 (a byte that straddles two groups takes each k's own alphas), chunks
+// with no rows (K < 8*KSPLIT) and m_active < M without padding any buffer.
+// m_active is a template argument (1..4) so the per-level registers stay
+// registers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void binary_matmul_kernel(const float* __restrict__ x,
-                                     const uint8_t* __restrict__ bp,
-                                     const float* __restrict__ alpha,
-                                     float* __restrict__ out, int T, int K,
-                                     int N, int G, int gs, int m_active) {
-  const int n = blockIdx.y * blockDim.x + threadIdx.x;
-  const int64_t t = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
-  if (t >= T || n >= N) return;
+constexpr int KSPLIT = 8;      // reduction chunks; part of the arithmetic, not of the plan
+constexpr int TILE_K = 32;     // k staged per warp at a time
+constexpr int NB = TILE_K / 8; // packed bytes per staged tile
+
+// blockDim = (cols, KSPLIT); grid = (ceil(T / R), ceil(N / cols));
+// dynamic shared memory: R * cols * KSPLIT floats.
+template <int R, int MA>
+__global__ void __launch_bounds__(512) binary_matmul_kernel(
+    const float* __restrict__ x, const uint8_t* __restrict__ bp,
+    const float* __restrict__ alpha, float* __restrict__ out, int T, int K,
+    int N, int G, int gs) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int cols = blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = (threadIdx.y * cols + threadIdx.x) >> 5;
+  float* xs = smem + warp * (R * TILE_K);  // this warp's [R][TILE_K] tile
+  const int n = blockIdx.y * cols + threadIdx.x;
+  const int nn = n < N ? n : 0;  // lanes past N read column 0, write nothing
+  const int t0 = blockIdx.x * R;
+  const int chunk = threadIdx.y;
   const int K8 = (K + 7) / 8;
-  const float* xr = x + t * K;
-  float acc = 0.f;
-  for (int m = 0; m < m_active; ++m) {
-    const uint8_t* col = bp + (int64_t)m * K8 * N + n;
-    const float* al = alpha + (int64_t)m * G * N + n;
-    float s = 0.f;
-    int g = 0, rem = gs;
-    for (int k8 = 0; k8 < K8; ++k8) {
-      const unsigned byte = __ldg(col + (int64_t)k8 * N);
-      const float* xk = xr + 8 * k8;
-      const int kn = min(8, K - 8 * k8);
-      if (kn == 8 && rem > 8) {  // a whole byte inside one group: 8 loads in flight
-        float xv[8];
+  const int k0 = 8 * ((chunk * K8) / KSPLIT);
+  const int k1 = min(K, 8 * (((chunk + 1) * K8) / KSPLIT));
+
+  float s[R];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) xv[j] = __ldg(xk + j);
+  for (int r = 0; r < R; ++r) s[r] = 0.f;
+  if (k0 < k1) {
+    int g = k0 / gs;
+    int rem = gs - (k0 - g * gs);  // rows left in group g
+    float a[MA], an[MA];           // alphas of groups g and g + 1
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s = fmaf(xv[j], ((byte >> j) & 1u) ? 1.f : -1.f, s);
-        rem -= 8;
-        continue;
+    for (int m = 0; m < MA; ++m) {
+      a[m] = __ldg(alpha + ((int64_t)m * G + g) * N + nn);
+      an[m] = g + 1 < G ? __ldg(alpha + ((int64_t)m * G + g + 1) * N + nn) : 0.f;
+    }
+    auto next_group = [&]() {
+      ++g;
+      rem = gs;
+#pragma unroll
+      for (int m = 0; m < MA; ++m) {
+        a[m] = an[m];
+        an[m] = g + 1 < G ? __ldg(alpha + ((int64_t)m * G + g + 1) * N + nn) : 0.f;
       }
-      for (int j = 0; j < kn; ++j) {
-        s = fmaf(__ldg(xk + j), ((byte >> j) & 1u) ? 1.f : -1.f, s);
-        if (--rem == 0) {  // end of group g: scale its partial sum by alpha
-          acc = fmaf(__ldg(al + (int64_t)g * N), s, acc);
-          s = 0.f;
-          ++g;
-          rem = gs;
+    };
+    float nx[R];
+    unsigned nb[NB][MA];
+    auto fetch = [&](int kt) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        nx[r] = (t0 + r < T && kt + lane < k1)
+                    ? __ldg(x + (int64_t)(t0 + r) * K + kt + lane) : 0.f;
+#pragma unroll
+      for (int jb = 0; jb < NB; ++jb)
+#pragma unroll
+        for (int m = 0; m < MA; ++m)
+          nb[jb][m] = kt + 8 * jb < k1
+                          ? __ldg(bp + ((int64_t)m * K8 + kt / 8 + jb) * N + nn) : 0u;
+    };
+    fetch(k0);
+    for (int kt = k0; kt < k1; kt += TILE_K) {
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < R; ++r) xs[r * TILE_K + lane] = nx[r];
+      __syncwarp();
+      unsigned bytes[NB][MA];
+#pragma unroll
+      for (int jb = 0; jb < NB; ++jb)
+#pragma unroll
+        for (int m = 0; m < MA; ++m) bytes[jb][m] = nb[jb][m];
+      if (kt + TILE_K < k1) fetch(kt + TILE_K);
+      const int kend = min(TILE_K, k1 - kt);
+#pragma unroll
+      for (int jb = 0; jb < NB; ++jb) {
+        const int kb = 8 * jb;
+        if (kb >= kend) break;
+        const int kn = min(8, kend - kb);
+        if (kn == 8 && rem >= 8) {  // a whole byte inside one group
+          float w[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            w[j] = 0.f;
+#pragma unroll
+            for (int m = 0; m < MA; ++m)
+              w[j] = fmaf(a[m], ((bytes[jb][m] >> j) & 1u) ? 1.f : -1.f, w[j]);
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float4 lo = *reinterpret_cast<const float4*>(xs + r * TILE_K + kb);
+            const float4 hi = *reinterpret_cast<const float4*>(xs + r * TILE_K + kb + 4);
+            float v = s[r];
+            v = fmaf(lo.x, w[0], v);
+            v = fmaf(lo.y, w[1], v);
+            v = fmaf(lo.z, w[2], v);
+            v = fmaf(lo.w, w[3], v);
+            v = fmaf(hi.x, w[4], v);
+            v = fmaf(hi.y, w[5], v);
+            v = fmaf(hi.z, w[6], v);
+            v = fmaf(hi.w, w[7], v);
+            s[r] = v;
+          }
+          rem -= 8;
+          if (rem == 0) next_group();
+        } else {
+          for (int j = 0; j < kn; ++j) {
+            float w = 0.f;
+#pragma unroll
+            for (int m = 0; m < MA; ++m)
+              w = fmaf(a[m], ((bytes[jb][m] >> j) & 1u) ? 1.f : -1.f, w);
+#pragma unroll
+            for (int r = 0; r < R; ++r) s[r] = fmaf(xs[r * TILE_K + kb + j], w, s[r]);
+            if (--rem == 0) next_group();
+          }
         }
       }
     }
   }
-  out[t * N + n] = acc;
+
+  // the KSPLIT partial sums of each output, added in chunk order
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r) smem[(chunk * R + r) * cols + threadIdx.x] = s[r];
+  __syncthreads();
+  const int tid = threadIdx.y * cols + threadIdx.x;
+  for (int o = tid; o < R * cols; o += KSPLIT * cols) {
+    const int r = o / cols, cx = o - r * cols;
+    const int t = t0 + r, no = blockIdx.y * cols + cx;
+    if (t >= T || no >= N) continue;
+    float y = smem[r * cols + cx];
+    for (int c = 1; c < KSPLIT; ++c) y = __fadd_rn(y, smem[(c * R + r) * cols + cx]);
+    out[(int64_t)t * N + no] = y;
+  }
+}
+
+template <int R, int MA>
+cudaError_t launch_plan(int cols, int T, int K, int N, int G, int gs, const float* x,
+                        const uint8_t* bp, const float* alpha, float* out,
+                        cudaStream_t stream) {
+  const dim3 block(cols, KSPLIT);
+  const dim3 grid((T + R - 1) / R, (N + cols - 1) / cols);
+  const size_t shmem = sizeof(float) * R * cols * KSPLIT;
+  binary_matmul_kernel<R, MA><<<grid, block, shmem, stream>>>(x, bp, alpha, out, T, K,
+                                                              N, G, gs);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_levels(int m_active, int cols, int T, int K, int N, int G, int gs,
+                          const float* x, const uint8_t* bp, const float* alpha,
+                          float* out, cudaStream_t stream) {
+  switch (m_active) {
+    case 1: return launch_plan<R, 1>(cols, T, K, N, G, gs, x, bp, alpha, out, stream);
+    case 2: return launch_plan<R, 2>(cols, T, K, N, G, gs, x, bp, alpha, out, stream);
+    case 3: return launch_plan<R, 3>(cols, T, K, N, G, gs, x, bp, alpha, out, stream);
+    case 4: return launch_plan<R, 4>(cols, T, K, N, G, gs, x, bp, alpha, out, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // x [T, K] f32, bp [M, ceil(K/8), N] u8, alpha [M, G, N] f32, out [T, N] f32,
-// all contiguous on the current device.  Tile plan: rows x cols outputs per
-// block, one thread each (rows * cols <= 1024).  Returns cudaGetLastError()
-// after the launch.
+// all contiguous on the current device; m_active 1..4.  Tile plan: rows
+// output rows per thread (1, 2, 4 or 8) and cols output columns per block
+// (32 or 64).  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a plan or level count it was not built for).
 extern "C" int binary_matmul_launch(const void* x, const void* bp,
                                     const void* alpha, void* out, int T, int K,
                                     int N, int G, int group_size, int m_active,
                                     int rows, int cols, void* stream) {
-  const dim3 block(cols, rows);
-  const dim3 grid((T + rows - 1) / rows, (N + cols - 1) / cols);
-  binary_matmul_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const uint8_t*)bp, (const float*)alpha, (float*)out, T,
-      K, N, G, group_size, m_active);
-  return (int)cudaGetLastError();
+  if (cols != 32 && cols != 64) return (int)cudaErrorInvalidValue;
+  const float* xf = (const float*)x;
+  const uint8_t* b8 = (const uint8_t*)bp;
+  const float* af = (const float*)alpha;
+  float* of = (float*)out;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t rc;
+  switch (rows) {
+    case 1: rc = launch_levels<1>(m_active, cols, T, K, N, G, group_size, xf, b8, af, of, s); break;
+    case 2: rc = launch_levels<2>(m_active, cols, T, K, N, G, group_size, xf, b8, af, of, s); break;
+    case 4: rc = launch_levels<4>(m_active, cols, T, K, N, G, group_size, xf, b8, af, of, s); break;
+    case 8: rc = launch_levels<8>(m_active, cols, T, K, N, G, group_size, xf, b8, af, of, s); break;
+    default: rc = cudaErrorInvalidValue;
+  }
+  return (int)rc;
 }
 
 extern "C" const char* error_string(int code) {

@@ -110,7 +110,7 @@ def _compile_dwconv(spec, p, shape, quant, dev):
     instr = DWConvInstr(
         B_tap_packed=tap, alpha=alpha, bias=_bias(p, C, dev), name=spec.name,
         kh=kh, kw=kw, stride=spec.stride, relu=spec.relu, pre=spec.pre, M=M,
-        plan=TilePlan(*ops.pick_dwconv_plan(B * U * V, C)), stats=stats)
+        plan=TilePlan(*ops.pick_dwconv_plan(C)), stats=stats)
     return instr, stats.out_shape
 
 

@@ -21,9 +21,11 @@ import torch
 
 
 class TilePlan(NamedTuple):
-    """A frozen kernel schedule: ``rows`` x ``cols`` outputs per thread block
-    (conv: pooled pixels x output channels; depth-wise: pixels x channels;
-    matmul: rows x output columns).  Every plan gives bit-identical outputs."""
+    """A frozen kernel schedule.  conv: ``rows`` pooled pixels x ``cols``
+    output channels per thread block; depth-wise: ``rows`` outputs per
+    thread (a 1x1, 1x2, 2x2 or 2x4 tile) x ``cols`` channels per block;
+    matmul: ``rows`` output rows per thread x ``cols`` output columns per
+    block.  Every plan gives bit-identical outputs."""
 
     rows: int
     cols: int

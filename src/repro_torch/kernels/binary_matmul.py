@@ -19,11 +19,27 @@ launches = 0   # kernel launches since the last reset_launch_counts()
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
+KSPLIT = 8             # reduction chunks of the kernel (csrc/binary_matmul.cu)
+MAX_LEVELS = 4         # the kernel is built for m_active 1..4
+_ROWS = (1, 2, 4, 8)   # output rows per thread (a register tile)
+_COLS = (32, 64)       # output columns per block; the block has cols x 8 threads
+
+
+def k_chunks(K: int) -> list[tuple[int, int]]:
+    """The kernel's split of the reduction rows ``[0, K)`` into ``KSPLIT``
+    chunks ``[k0, k1)`` on byte rows; the bounds depend on K alone, so every
+    tile plan sums each output in the same order (k in order inside a
+    chunk, then the chunks' sums in chunk order)."""
+    K8 = -(-K // 8)
+    return [(8 * (c * K8 // KSPLIT), min(K, 8 * ((c + 1) * K8 // KSPLIT)))
+            for c in range(KSPLIT)]
+
+
 def check_plan(plan: tuple[int, int]) -> None:
     rows, cols = plan
-    if rows < 1 or cols < 1 or rows * cols > 1024:
-        raise ValueError(f"matmul plan {plan}: one thread per output, so "
-                         "rows * cols must be 1..1024")
+    if rows not in _ROWS or cols not in _COLS:
+        raise ValueError(f"matmul plan {plan}: rows per thread must be one of "
+                         f"{_ROWS} and columns per block one of {_COLS}")
 
 
 def launch(x: torch.Tensor, B_packed: torch.Tensor, alpha: torch.Tensor, *,
@@ -39,8 +55,9 @@ def launch(x: torch.Tensor, B_packed: torch.Tensor, alpha: torch.Tensor, *,
     _build.require(alpha, "alpha", torch.float32, (M, G, N), x.device)
     if G * group_size != K:
         raise ValueError(f"alpha has {G} groups of {group_size}, K={K}")
-    if not 1 <= m_active <= M:
-        raise ValueError(f"m_active={m_active} outside 1..{M}")
+    if not 1 <= m_active <= min(M, MAX_LEVELS):
+        raise ValueError(f"m_active={m_active} outside 1..{min(M, MAX_LEVELS)} (M={M}; "
+                         f"the kernel sums at most {MAX_LEVELS} levels)")
     check_plan(plan)
     out = torch.empty((T, N), dtype=torch.float32, device=x.device)
     if T == 0 or N == 0:

@@ -1,21 +1,22 @@
 """The kernel wrappers the deploy executor calls (port of ``repro/kernels/ops.py``).
 
 Each wrapper clamps ``m_active`` to ``min(m_active or M, M)`` and resolves
-SAME padding (so the kernels only see pre-padded NHWC input), then routes by
-the tensor's device: a CUDA tensor goes to the CUDA kernel, a CPU tensor to
-the plain PyTorch version in ``kernels/ref.py``; anything else raises.
-There is no fallback from the kernel to the plain version.
+SAME padding (the conv kernel takes pre-padded NHWC input, the depth-wise
+kernel the unpadded input and its pads), then routes by the tensor's
+device: a CUDA tensor goes to the CUDA kernel, a CPU tensor to the plain
+PyTorch version in ``kernels/ref.py``; anything else raises.  There is no
+fallback from the kernel to the plain version.
 
-Tile plans are ``(rows, cols)`` output tiles per thread block.  The pick
-functions below choose one from the output shape and bump
-``plan_pick_count()``; the deploy compiler calls them once per instruction
-and freezes the result, so ``execute`` makes no pick.
+Tile plans are ``(rows, cols)`` pairs, read per kernel as each pick
+function says.  The pick functions below choose one from the layer's shape
+and bump ``plan_pick_count()``; the deploy compiler calls them once per
+instruction and freezes the result, so ``execute`` makes no pick.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.binconv import pad_nhwc
+from repro_torch.core.binconv import conv_geometry, pad_nhwc
 from repro_torch.kernels import binary_conv as bck
 from repro_torch.kernels import binary_dwconv as bdw
 from repro_torch.kernels import binary_matmul as bmk
@@ -56,12 +57,16 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def pick_matmul_plan(T: int, N: int) -> tuple[int, int]:
-    """(rows, cols) for a [T, N] output, one thread per output: a warp's
-    width of columns, and 4 rows per block unless 8 still leaves two blocks
-    per SM."""
+    """(rows, cols) for a [T, N] output: ``rows`` output rows per thread
+    (a register tile sharing each folded weight) and ``cols`` output
+    columns per block, one warp wide; the most rows that still leave one
+    block for every two SMs (the rule ``tools/torch_plan_sweep.py`` found
+    fastest at CNN-A's and MobileNet's linear shapes)."""
     _note_pick()
-    rows = 8 if _cdiv(T, 8) * _cdiv(N, 32) >= 2 * _SMS else 4
-    return rows, 32
+    for rows in (8, 4, 2):
+        if _cdiv(T, rows) * _cdiv(N, 32) >= _SMS // 2:
+            return rows, 32
+    return 1, 32
 
 
 def pick_conv_plan(P: int, D: int) -> tuple[int, int]:
@@ -76,13 +81,14 @@ def pick_conv_plan(P: int, D: int) -> tuple[int, int]:
     return rows, cols
 
 
-def pick_dwconv_plan(P: int, C: int) -> tuple[int, int]:
-    """(rows, cols) for ``P`` pixels x ``C`` channels: a channel width that
-    fits C, and 4 pixels per thread of the 256-thread block, so that many
-    short blocks, not a few long ones, keep the loads in flight."""
+def pick_dwconv_plan(C: int) -> tuple[int, int]:
+    """(tile, cols) for a depth-wise layer over ``C`` channels: 8 outputs
+    per thread as a 2x4 tile (24 loads for 8 outputs at stride 1, one level
+    fold per 8 outputs), the tile ``tools/torch_plan_sweep.py`` found
+    fastest at every MobileNet depth-wise shape, and a channel width per
+    block that fits C."""
     _note_pick()
-    cols = 32 if C <= 32 else 64 if C <= 64 else 128
-    return 4 * (256 // cols), cols
+    return 8, 32 if C <= 32 else 64 if C <= 64 else 128
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -141,10 +147,9 @@ def binary_dwconv2d(x: torch.Tensor, B_tap_packed: torch.Tensor, alpha: torch.Te
         return kref.binary_dwconv_relu_ref(
             x, B_tap_packed, alpha, kh=kh, kw=kw, stride=stride, padding=padding,
             m_active=m, bias=bias, relu=relu)
-    xp = pad_nhwc(x.to(torch.float32), kh, kw, stride, padding).contiguous()
-    if plan is None:
-        B, Hp, Wp, C = xp.shape
-        U, V = (Hp - kh) // stride + 1, (Wp - kw) // stride + 1
-        plan = pick_dwconv_plan(B * U * V, C)
-    return bdw.launch(xp, B_tap_packed, alpha, bias, kh=kh, kw=kw, stride=stride,
-                      m_active=m, relu=relu, plan=plan)
+    x = x.to(torch.float32).contiguous()
+    B, H, W, C = x.shape
+    pads, (U, V) = conv_geometry(H, W, kh, kw, stride, padding)
+    return bdw.launch(x, B_tap_packed, alpha, bias, kh=kh, kw=kw, stride=stride,
+                      pads=pads, out_hw=(U, V), m_active=m, relu=relu,
+                      plan=plan or pick_dwconv_plan(C))

@@ -18,6 +18,7 @@ from repro_torch.core import binarize as bz
 from repro_torch.core.binlinear import QuantConfig
 from repro_torch.kernels import binary_conv as bck
 from repro_torch.kernels import binary_dwconv as bdw
+from repro_torch.kernels import binary_matmul as bmk
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.models import cnn
@@ -45,8 +46,13 @@ def _alpha(gen, shape):
 
 
 @pytest.mark.parametrize("T,K,N,M,group_size,m_active", [
-    (5, 13, 7, 2, None, None), (64, 1350, 340, 2, 675, 1), (16, 24, 40, 3, 12, 2),
-    (16, 1024, 1000, 2, None, None), (3, 490, 43, 2, None, 2)])
+    (5, 13, 7, 2, None, None),          # K = 13: fewer bytes than reduction chunks
+    (64, 1350, 340, 2, 675, 1),         # group 675 crosses chunk bounds
+    (16, 24, 40, 3, 12, 2),             # group 12 at K = 24
+    (16, 1024, 1000, 2, None, None), (3, 490, 43, 2, None, 2),
+    (1, 340, 490, 2, None, None),       # T = 1
+    (64, 1350, 1, 2, 675, None),        # N = 1
+    (7, 1350, 43, 3, 675, 3)])
 def test_binary_matmul_kernel_matches_plain(card, T, K, N, M, group_size, m_active):
     gen = torch.Generator().manual_seed(T * K + N)
     gs = group_size or K
@@ -56,11 +62,11 @@ def test_binary_matmul_kernel_matches_plain(card, T, K, N, M, group_size, m_acti
     want = ref.binary_matmul_ref(x, packed, alpha, K=K, group_size=gs, m_active=m_active)
     before = ops.launch_counts()["binary_matmul"]
     outs = [ops.binary_matmul(x, packed, alpha, K=K, group_size=gs, m_active=m_active,
-                              plan=plan) for plan in ((16, 64), (4, 32))]
+                              plan=plan) for plan in ((8, 64), (1, 32), (4, 32))]
     torch.cuda.synchronize()
-    assert ops.launch_counts()["binary_matmul"] - before == 2
+    assert ops.launch_counts()["binary_matmul"] - before == 3
     torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
-    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
 @pytest.mark.parametrize("B,H,W,C,D,kh,kw,stride,padding,pool,M,m_active,relu,group_size", [
@@ -91,7 +97,13 @@ def test_binary_conv_kernel_matches_plain(card, B, H, W, C, D, kh, kw, stride, p
 
 @pytest.mark.parametrize("B,H,W,C,stride,M,m_active,relu", [
     (3, 112, 112, 32, 1, 2, None, True), (3, 14, 14, 512, 2, 2, 1, True),
-    (2, 9, 9, 12, 1, 3, 2, False), (1, 7, 7, 1024, 1, 2, None, True)])
+    (2, 9, 9, 12, 1, 3, 2, False), (1, 7, 7, 1024, 1, 2, None, True),
+    (2, 7, 7, 64, 2, 2, None, True),     # odd map at stride 2: pads (1, 1)
+    (2, 15, 13, 128, 2, 2, 1, False),    # odd, non-square, stride 2
+    (3, 9, 9, 5, 1, 2, None, True),      # C = 5: one channel per thread
+    (2, 10, 10, 12, 2, 2, 2, True),      # C = 12: 4-channel groups across bytes
+    (2, 1, 1, 32, 1, 2, None, True),     # 1x1 input
+    (2, 1, 1, 5, 2, 2, None, False)])
 def test_binary_dwconv_kernel_matches_plain(card, B, H, W, C, stride, M, m_active, relu):
     gen = torch.Generator().manual_seed(B * H + C)
     x = torch.randn(B, H, W, C, generator=gen).to(card)
@@ -101,10 +113,10 @@ def test_binary_dwconv_kernel_matches_plain(card, B, H, W, C, stride, M, m_activ
     kw_ = dict(kh=3, kw=3, stride=stride, m_active=m_active, relu=relu)
     want = ref.binary_dwconv_relu_ref(x, tap, alpha, bias=bias, **kw_)
     outs = [ops.binary_dwconv2d(x, tap, alpha, bias, plan=plan, **kw_)
-            for plan in ((64, 32), (256, 128))]
+            for plan in ((4, 32), (1, 256), (8, 64))]
     torch.cuda.synchronize()
     torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
-    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
 def test_cnn_a_program_runs_its_kernels(card):
@@ -138,3 +150,31 @@ def test_launchers_refuse_bad_arguments(card):
         bck.launch(x, tap, alpha, bias, plan=(6, 64), **args)
     with pytest.raises(ValueError, match="m_active"):
         bck.launch(x, tap, alpha, bias, plan=(64, 64), **dict(args, m_active=3))
+
+
+def test_dwconv_launcher_takes_unpadded_input_and_refuses_what_it_was_not_built_for(card):
+    x = torch.randn(2, 9, 9, 16, device=card)
+    tap = torch.zeros(2, 9, 2, dtype=torch.uint8, device=card)
+    alpha = torch.ones(2, 16, device=card)
+    bias = torch.zeros(16, device=card)
+    args = dict(kh=3, kw=3, stride=2, pads=(1, 1), out_hw=(5, 5), m_active=2, relu=False)
+    want = ref.binary_dwconv_relu_ref(x, tap, alpha, kh=3, kw=3, stride=2, relu=False)
+    torch.testing.assert_close(bdw.launch(x, tap, alpha, bias, plan=(2, 32), **args), want,
+                               rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="plan"):
+        bdw.launch(x, tap, alpha, bias, plan=(3, 32), **args)
+    with pytest.raises(ValueError, match="3x3"):
+        bdw.launch(x, torch.zeros(2, 25, 2, dtype=torch.uint8, device=card), alpha, bias,
+                   plan=(2, 32), **dict(args, kh=5, kw=5))
+    with pytest.raises(ValueError, match="do not fit"):
+        bdw.launch(x, tap, alpha, bias, plan=(2, 32), **dict(args, out_hw=(6, 5)))
+
+
+def test_matmul_launcher_refuses_more_levels_than_it_was_built_for(card):
+    x = torch.randn(4, 16, device=card)
+    packed = torch.zeros(5, 2, 8, dtype=torch.uint8, device=card)
+    alpha = torch.ones(5, 1, 8, device=card)
+    assert bmk.launch(x, packed, alpha, K=16, group_size=16, m_active=4,
+                      plan=(1, 32)).shape == (4, 8)
+    with pytest.raises(ValueError, match="at most 4 levels"):
+        bmk.launch(x, packed, alpha, K=16, group_size=16, m_active=5, plan=(1, 32))

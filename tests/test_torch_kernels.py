@@ -19,11 +19,13 @@ from repro.kernels import binary_dwconv as jbdw
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import binarize as tbz
+from repro_torch.core.binconv import conv_geometry, pad_nhwc
 from repro_torch.kernels import binary_conv as tbck
 from repro_torch.kernels import binary_dwconv as tbdw
 from repro_torch.kernels import binary_matmul as tbmk
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.models.cnn import MOBILENET_BLOCKS
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -173,5 +175,122 @@ def test_picked_plans_are_launchable(P, D):
     multiples, shared memory), so a compiled program never carries a plan
     the kernel would refuse."""
     tbck.check_plan(tops.pick_conv_plan(P, D))
-    tbdw.check_plan(tops.pick_dwconv_plan(P, D))
+    tbdw.check_plan(tops.pick_dwconv_plan(D))
     tbmk.check_plan(tops.pick_matmul_plan(P, D))
+    with pytest.raises(ValueError, match="plan"):
+        tbdw.check_plan((3, 64))
+    with pytest.raises(ValueError, match="plan"):
+        tbmk.check_plan((4, 128))
+
+
+def _split_k_sum(x, B, alpha, gs, m_active):
+    """The CUDA matmul's order of work, in float64: per chunk of
+    ``k_chunks(K)``, a sum over its k in order of x times the folded weight
+    ``w[k] = sum_m alpha[m, g(k)] * B[m, k]``, with g(k) kept by the kernel's
+    countdown to the next group end; the chunks' sums added in chunk order."""
+    T, K = x.shape
+    y = np.zeros((T, B.shape[2]))
+    for k0, k1 in tbmk.k_chunks(K):
+        s = np.zeros_like(y)
+        g = k0 // gs
+        rem = gs - (k0 - g * gs)
+        for k in range(k0, k1):
+            assert g == k // gs
+            w = sum(alpha[m, g] * B[m, k] for m in range(m_active))
+            s += x[:, k:k + 1] * w
+            rem -= 1
+            if rem == 0:
+                g, rem = g + 1, gs
+        y += s
+    return y
+
+
+@pytest.mark.parametrize("K,group_size", [(13, None), (24, 12), (1350, 675), (64, 16),
+                                          (1024, None), (340, None), (7, None)])
+def test_split_k_chunks_tile_k_and_sum_like_the_plain_version(K, group_size):
+    """The matmul kernel's K split: KSPLIT byte-aligned chunks that tile
+    [0, K) in order (empty ones where K has fewer bytes than chunks), and a
+    chunked sum over alpha-folded weights, with groups that cross bytes and
+    chunk bounds, agrees with the plain version."""
+    chunks = tbmk.k_chunks(K)
+    assert len(chunks) == tbmk.KSPLIT
+    assert chunks[0][0] == 0 and chunks[-1][1] == K
+    for (a0, a1), (b0, b1) in zip(chunks, chunks[1:]):
+        assert a1 == b0 or (a1 == K and b0 >= K)
+    assert all(k0 % 8 == 0 and k0 <= max(k1, k0) for k0, k1 in chunks)
+    assert sum(max(0, k1 - k0) for k0, k1 in chunks) == K
+    rng = np.random.default_rng(K)
+    gs = group_size or K
+    T, N, M = 3, 5, 2
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    B = _signs(rng, (M, K, N))
+    alpha = _alpha(rng, (M, K // gs, N))
+    want = tref.binary_matmul_ref(torch.from_numpy(x), tbz.pack_bits(
+        tbz.pad_rows_to_byte(torch.from_numpy(B))), torch.from_numpy(alpha), K=K,
+        group_size=gs)
+    np.testing.assert_allclose(_split_k_sum(x.astype(np.float64), B, alpha, gs, M),
+                               want.numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("H,W,stride", [
+    (7, 7, 2),      # odd map at stride 2: pads (1, 1)
+    (14, 14, 2),    # even map at stride 2: pads (0, 1)
+    (9, 9, 1), (8, 8, 1), (10, 10, 2), (15, 14, 2), (14, 15, 1),
+    (1, 1, 1), (1, 1, 2),   # 1x1 maps
+])
+def test_dwconv_geometry_matches_pad_nhwc(H, W, stride):
+    """The depth-wise kernel takes the unpadded input, the low-side pads and
+    the output size from ``conv_geometry``; its border taps read zero.  Those
+    must be what ``pad_nhwc`` pads and what the plain version outputs, and
+    the kernel's strip walk must visit each output's taps in (i, j) order at
+    the padded input's positions."""
+    rng = np.random.default_rng(H * W + stride)
+    x = torch.from_numpy(rng.standard_normal((2, H, W, 3)).astype(np.float32))
+    (pt, pl), (U, V) = conv_geometry(H, W, 3, 3, stride, "SAME")
+    xp = pad_nhwc(x, 3, 3, stride, "SAME")
+    framed = torch.zeros_like(xp)
+    framed[:, pt:pt + H, pl:pl + W] = x
+    assert torch.equal(xp, framed)
+    tap = tbdw.pack_dw_taps(torch.from_numpy(_signs(rng, (2, 9, 3))))
+    alpha = torch.from_numpy(_alpha(rng, (2, 3)))
+    plain = tref.binary_dwconv_relu_ref(x, tap, alpha, kh=3, kw=3, stride=stride)
+    assert tuple(plain.shape) == (2, U, V, 3)
+    assert 0 <= pt < 3 and 0 <= pl < 3
+    assert (U - 1) * stride - pt < H and (V - 1) * stride - pl < W
+    for ut, vt in ((1, 1), (1, 2), (2, 2), (2, 4)):   # every tile the plans allow
+        nrow, ncol = (ut - 1) * stride + 3, (vt - 1) * stride + 3
+        for u0 in range(0, U, ut):
+            for v0 in range(0, V, vt):
+                seen = {(q, o): [] for q in range(ut) for o in range(vt)
+                        if u0 + q < U and v0 + o < V}
+                for ir in range(nrow):
+                    hi = u0 * stride - pt + ir
+                    for col in range(ncol):
+                        wi = v0 * stride - pl + col
+                        for q, o in seen:
+                            i, j = ir - q * stride, col - o * stride
+                            if 0 <= i < 3 and 0 <= j < 3:
+                                inside = 0 <= hi < H and 0 <= wi < W
+                                seen[q, o].append((i, j))
+                                want = xp[:, (u0 + q) * stride + i, (v0 + o) * stride + j]
+                                got = x[:, hi, wi] if inside else torch.zeros(2, 3)
+                                assert torch.equal(got, want)
+                for taps in seen.values():
+                    assert taps == [(i, j) for i in range(3) for j in range(3)]
+    assert conv_geometry(H + 2, W + 2, 3, 3, 1, "VALID") == ((0, 0), (H, W))
+
+
+@pytest.mark.parametrize("batch", [16, 3, 1])
+def test_picked_plans_are_launchable_at_program_shapes(batch):
+    """At every depth-wise and linear instruction shape of MobileNetV1-224
+    and CNN-A (compiled batch, a ragged one and 1) the picks are launchable,
+    and a matmul thread only gets more rows where the card still gets a
+    block for every two SMs."""
+    for C in [32] + [cout for _, cout in MOBILENET_BLOCKS[:-1]]:   # dw0..dw12
+        tile, cols = tops.pick_dwconv_plan(C)
+        tbdw.check_plan((tile, cols))
+        assert cols >= min(C, 128)
+    for T, N in [(4 * batch, 340), (4 * batch, 490), (4 * batch, 43), (batch, 1000)]:
+        rows, cols = tops.pick_matmul_plan(T, N)
+        tbmk.check_plan((rows, cols))
+        assert rows == 1 or -(-T // rows) * -(-N // cols) >= 66
