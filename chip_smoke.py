@@ -12,7 +12,8 @@ source, all at once) and runs, each phase failing loudly:
      shape of both programs, m_active 1 and 2, the compiled batch and a
      ragged batch of 3, plus the matmul with group_size 675 (not a multiple
      of 8); tolerance rtol 1e-5, atol 1e-4 (the reference's).  A second tile
-     plan of each kernel must agree bit for bit (torch.equal);
+     plan of each kernel (``ALT_PLAN``, which no pick may equal) must agree
+     bit for bit (torch.equal);
   2. CNN-A (48²x3, 43 classes, M=2) at batch 64 through compile -> execute
      under m_active None, 1 and a per-layer schedule, against
      execute_reference; 2 conv + 3 matmul launches per call;
@@ -80,7 +81,7 @@ TPU_KERNELS = {  # name -> (CUDA source, TPU kernel it replaces)
                       "src/repro/kernels/binary_matmul.py:92"),
 }
 KERNEL_OF = {"conv": "binary_conv", "dwconv": "binary_dwconv", "linear": "binary_matmul"}
-ALT_PLAN = {"conv": (16, 32), "dwconv": (2, 256), "linear": (2, 64)}
+ALT_PLAN = {"conv": (64, 32), "dwconv": (2, 256), "linear": (2, 64)}
 EXPECTED_LAUNCHES = {
     "cnn_a": {"binary_conv": 2, "binary_dwconv": 0, "binary_matmul": 3},
     "mobilenet": {"binary_conv": 14, "binary_dwconv": 13, "binary_matmul": 1},
@@ -125,6 +126,9 @@ def check_kernels(programs: dict, gen: torch.Generator, dev) -> dict:
     checks = 0
     for arch, program in programs.items():
         for instr in program.instrs:
+            if tuple(instr.plan) == ALT_PLAN[instr.kind]:
+                fail(f"{arch}/{instr.name}: the picked plan is the second plan "
+                     f"{ALT_PLAN[instr.kind]}, so the bit-identity check would not bite")
             for batch in (program.input_shape[0], 3):
                 for m in (1, 2):
                     compare(f"{arch}/{instr.name}", instr, batch, m, ALT_PLAN[instr.kind])

@@ -79,7 +79,7 @@ def _compile_conv(spec, p, shape, quant, dev):
     stats = LayerStats(in_shape=(B, H, W, C), out_shape=out_shape, padded_in=(Hp, Wp),
                        macs=U * V * D * kh * kw * C,
                        weight_bytes=tap.numel() + alpha.numel() * 4)
-    plan = TilePlan(*ops.pick_conv_plan(B * out_shape[1] * out_shape[2], D))
+    plan = TilePlan(*ops.pick_conv_plan(B * U * V, D, spec.pool))
     instr = ConvInstr(
         B_tap_packed=tap, alpha=alpha, bias=_bias(p, D, dev), name=spec.name,
         kh=kh, kw=kw, stride=spec.stride, padding=spec.padding, pool=spec.pool,

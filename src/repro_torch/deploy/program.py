@@ -21,8 +21,8 @@ import torch
 
 
 class TilePlan(NamedTuple):
-    """A frozen kernel schedule.  conv: ``rows`` pooled pixels x ``cols``
-    output channels per thread block; depth-wise: ``rows`` outputs per
+    """A frozen kernel schedule.  conv: ``rows`` unpooled outputs (whole
+    pool windows) x ``cols`` output channels per thread block; depth-wise: ``rows`` outputs per
     thread (a 1x1, 1x2, 2x2 or 2x4 tile) x ``cols`` channels per block;
     matmul: ``rows`` output rows per thread x ``cols`` output columns per
     block.  Every plan gives bit-identical outputs."""

@@ -1,9 +1,9 @@
 """The kernel wrappers the deploy executor calls (port of ``repro/kernels/ops.py``).
 
 Each wrapper clamps ``m_active`` to ``min(m_active or M, M)`` and resolves
-SAME padding (the conv kernel takes pre-padded NHWC input, the depth-wise
-kernel the unpadded input and its pads), then routes by the tensor's
-device: a CUDA tensor goes to the CUDA kernel, a CPU tensor to the plain
+SAME padding into the low-side pads and the output size (both conv kernels
+take the unpadded input and mask their border taps), then routes by the
+tensor's device: a CUDA tensor goes to the CUDA kernel, a CPU tensor to the plain
 PyTorch version in ``kernels/ref.py``; anything else raises.  There is no
 fallback from the kernel to the plain version.
 
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.binconv import conv_geometry, pad_nhwc
+from repro_torch.core.binconv import conv_geometry
 from repro_torch.kernels import binary_conv as bck
 from repro_torch.kernels import binary_dwconv as bdw
 from repro_torch.kernels import binary_matmul as bmk
@@ -69,16 +69,31 @@ def pick_matmul_plan(T: int, N: int) -> tuple[int, int]:
     return 1, 32
 
 
-def pick_conv_plan(P: int, D: int) -> tuple[int, int]:
-    """(rows, cols) for ``P`` pooled pixels x ``D`` channels: 256-thread
-    blocks whose channel width fits D (32 / 64 / 128), halving the pixel
-    rows while that leaves fewer blocks than SMs."""
+def conv_blocks(P: int, D: int, pool: int, plan: tuple[int, int]) -> int:
+    """Blocks the conv kernel launches for ``P`` unpooled output rows: each
+    holds ``rows // pool**2`` whole pool windows by ``cols`` channels."""
+    rows, cols = plan
+    pp = pool * pool
+    return _cdiv(P // pp, rows // pp) * _cdiv(D, cols)
+
+
+def pick_conv_plan(P: int, D: int, pool: int = 1) -> tuple[int, int]:
+    """(rows, cols) for ``P`` unpooled conv outputs x ``D`` channels, the
+    rule ``tools/torch_plan_sweep.py`` found fastest at every conv shape of
+    CNN-A (batch 64) and MobileNetV1-224 (batch 16): the channel width that
+    fits D (32 / 64 / 128; 64 where it pads D less than 128 does), 96 rows
+    with 128 channels unpooled (one block per SM at the 14 x 14 layers),
+    else 128 rows; and 128 x 64 where 96 x 128 would leave a quarter of
+    the SMs idle."""
     _note_pick()
-    cols = 32 if D <= 32 else 64 if (D <= 64 or P >= 2048) else 128
-    rows = 4096 // cols
-    while rows > 16 and _cdiv(P, rows) * _cdiv(D, cols) < _SMS:
-        rows //= 2
-    return rows, cols
+    cols = 32 if D <= 32 else 64 if D <= 64 else 128
+    if D > 128 and -D % 64 < -D % 128:
+        cols = 64
+    if cols == 128 and pool == 1:
+        if conv_blocks(P, D, pool, (96, 128)) >= 3 * _SMS // 4:
+            return 96, 128
+        return 128, 64
+    return 128, cols
 
 
 def pick_dwconv_plan(C: int) -> tuple[int, int]:
@@ -128,13 +143,12 @@ def binary_conv2d(x: torch.Tensor, B_tap_packed: torch.Tensor, alpha: torch.Tens
         return kref.fused_binary_conv_relu_pool_ref(
             x, B_tap_packed, alpha, kh=kh, kw=kw, stride=stride, padding=padding,
             pool=pool, m_active=m, bias=bias, relu=relu)
-    xp = pad_nhwc(x.to(torch.float32), kh, kw, stride, padding).contiguous()
-    if plan is None:
-        B, Hp, Wp, _ = xp.shape
-        U, V = (Hp - kh) // stride + 1, (Wp - kw) // stride + 1
-        plan = pick_conv_plan(B * (U // pool) * (V // pool), B_tap_packed.shape[-1])
-    return bck.launch(xp, B_tap_packed, alpha, bias, kh=kh, kw=kw, stride=stride,
-                      pool=pool, m_active=m, relu=relu, plan=plan)
+    x = x.to(torch.float32).contiguous()
+    B, H, W, _ = x.shape
+    pads, (U, V) = conv_geometry(H, W, kh, kw, stride, padding)
+    return bck.launch(x, B_tap_packed, alpha, bias, kh=kh, kw=kw, stride=stride,
+                      pads=pads, out_hw=(U, V), pool=pool, m_active=m, relu=relu,
+                      plan=plan or pick_conv_plan(B * U * V, B_tap_packed.shape[-1], pool))
 
 
 def binary_dwconv2d(x: torch.Tensor, B_tap_packed: torch.Tensor, alpha: torch.Tensor,

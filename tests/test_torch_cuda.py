@@ -69,11 +69,19 @@ def test_binary_matmul_kernel_matches_plain(card, T, K, N, M, group_size, m_acti
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
+CONV_PLANS = ((128, 128), (64, 32), (96, 128), (128, 64), (64, 128), (96, 32), (128, 32))
+
+
 @pytest.mark.parametrize("B,H,W,C,D,kh,kw,stride,padding,pool,M,m_active,relu,group_size", [
     (5, 48, 48, 3, 5, 7, 7, 1, "VALID", 2, 2, None, True, None),    # conv1
     (3, 21, 21, 5, 150, 4, 4, 1, "VALID", 6, 2, 1, True, None),     # conv2
+    (7, 21, 21, 5, 43, 4, 4, 1, "VALID", 6, 2, None, False, None),  # pool 6, ragged batch, D = 43
     (3, 224, 224, 3, 32, 3, 3, 2, "SAME", 1, 2, None, True, None),  # stem
+    (2, 225, 223, 3, 32, 3, 3, 2, "SAME", 1, 2, None, True, None),  # stem, odd sizes
+    (3, 17, 15, 3, 43, 3, 3, 2, "SAME", 1, 2, 1, False, None),      # odd, pads (1, 1)
     (3, 7, 7, 1024, 1024, 1, 1, 1, "VALID", 1, 2, None, True, None),  # pw12
+    (2, 14, 14, 12, 64, 1, 1, 1, "VALID", 1, 2, None, True, None),  # 1x1, C = 12
+    (3, 9, 9, 40, 100, 1, 1, 1, "VALID", 1, 2, 1, False, 20),       # 1x1, C = 40, groups of 20
     (2, 8, 8, 5, 6, 4, 4, 1, "SAME", 2, 3, 2, False, 20),           # groups span taps
     (1, 6, 6, 12, 9, 1, 1, 1, "VALID", 1, 2, None, False, 6)])
 def test_binary_conv_kernel_matches_plain(card, B, H, W, C, D, kh, kw, stride, padding,
@@ -88,11 +96,53 @@ def test_binary_conv_kernel_matches_plain(card, B, H, W, C, D, kh, kw, stride, p
     kw_ = dict(kh=kh, kw=kw, stride=stride, padding=padding, pool=pool,
                m_active=m_active, relu=relu)
     want = ref.fused_binary_conv_relu_pool_ref(x, tap, alpha, bias=bias, **kw_)
-    outs = [ops.binary_conv2d(x, tap, alpha, bias, plan=plan, **kw_)
-            for plan in ((64, 64), (16, 32))]
+    before = ops.launch_counts()["binary_conv"]
+    outs = [ops.binary_conv2d(x, tap, alpha, bias, plan=plan, **kw_) for plan in CONV_PLANS]
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["binary_conv"] - before == len(CONV_PLANS)
+    torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
+    for out in outs[1:]:
+        assert torch.equal(outs[0], out)
+
+
+@pytest.mark.parametrize("m_active", [1, 2, 3])
+def test_binary_conv_kernel_folds_every_level_count(card, m_active):
+    """M = 3 packed levels, each m_active 1..3, groups that span taps."""
+    gen = torch.Generator().manual_seed(m_active)
+    B, H, W, C, D, M = 3, 10, 10, 5, 43, 3
+    K = 3 * 3 * C
+    x = torch.randn(B, H, W, C, generator=gen).to(card)
+    tap = bck.pack_taps(_signs(gen, (M, K, D)), 3, 3, C).to(card)
+    alpha = _alpha(gen, (M, K // 15, D)).to(card)
+    bias = torch.randn(D, generator=gen).to(card)
+    kw_ = dict(kh=3, kw=3, stride=1, padding="SAME", pool=2, m_active=m_active)
+    want = ref.fused_binary_conv_relu_pool_ref(x, tap, alpha, bias=bias, **kw_)
+    outs = [ops.binary_conv2d(x, tap, alpha, bias, plan=plan, **kw_) for plan in CONV_PLANS]
     torch.cuda.synchronize()
     torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
-    assert torch.equal(outs[0], outs[1])
+    for out in outs[1:]:
+        assert torch.equal(outs[0], out)
+
+
+@pytest.mark.parametrize("P,C,D", [(3136 * 2 + 5, 512, 512), (7 * 7 * 3, 1024, 1000),
+                                   (100, 12, 40)])
+def test_pointwise_path_and_gather_path_give_the_same_bits(card, P, C, D):
+    """A 1x1 layer goes through the kernel's 16-byte point-wise loads; the
+    general gather path must give the same bits on it."""
+    gen = torch.Generator().manual_seed(P + C)
+    x = torch.randn(1, P, 1, C, generator=gen).to(card)
+    tap = bck.pack_taps(_signs(gen, (2, C, D)), 1, 1, C).to(card)
+    alpha = _alpha(gen, (2, 1, D)).to(card)
+    bias = torch.randn(D, generator=gen).to(card)
+    kw_ = dict(kh=1, kw=1, stride=1, pads=(0, 0), out_hw=(P, 1), pool=1, m_active=2,
+               relu=True)
+    for plan in ((128, 128), (64, 64)):
+        dense = bck.launch(x, tap, alpha, bias, plan=plan, **kw_)
+        gathered = bck.launch(x, tap, alpha, bias, plan=plan, gather=True, **kw_)
+        torch.cuda.synchronize()
+        assert torch.equal(dense, gathered)
+    want = ref.fused_binary_conv_relu_pool_ref(x, tap, alpha, kh=1, kw=1, bias=bias)
+    torch.testing.assert_close(dense, want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("B,H,W,C,stride,M,m_active,relu", [
@@ -141,15 +191,24 @@ def test_launchers_refuse_bad_arguments(card):
     tap = torch.zeros(2, 9, 1, 16, dtype=torch.uint8, device=card)
     alpha = torch.ones(2, 1, 16, device=card)
     bias = torch.zeros(16, device=card)
-    args = dict(kh=3, kw=3, stride=1, pool=1, m_active=2, relu=True)
+    args = dict(kh=3, kw=3, stride=1, pads=(1, 1), out_hw=(8, 8), pool=1, m_active=2,
+                relu=True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         bck.launch(x.cpu(), tap, alpha, bias, plan=(64, 64), **args)
     with pytest.raises(ValueError, match="float32"):
         bck.launch(x.double(), tap, alpha, bias, plan=(64, 64), **args)
     with pytest.raises(ValueError, match="plan"):
         bck.launch(x, tap, alpha, bias, plan=(6, 64), **args)
+    with pytest.raises(ValueError, match="pool"):
+        bck.launch(x, tap, alpha, bias, plan=(64, 64), **dict(args, pool=9, out_hw=(9, 9)))
     with pytest.raises(ValueError, match="m_active"):
         bck.launch(x, tap, alpha, bias, plan=(64, 64), **dict(args, m_active=3))
+    with pytest.raises(ValueError, match="do not fit"):
+        bck.launch(x, tap, alpha, bias, plan=(64, 64), **dict(args, out_hw=(10, 8)))
+    five = torch.zeros(5, 9, 1, 16, dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="at most 4 levels"):
+        bck.launch(x, five, torch.ones(5, 1, 16, device=card), bias, plan=(64, 64),
+                   **dict(args, m_active=5))
 
 
 def test_dwconv_launcher_takes_unpadded_input_and_refuses_what_it_was_not_built_for(card):

@@ -19,7 +19,7 @@ from repro.kernels import binary_dwconv as jbdw
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import binarize as tbz
-from repro_torch.core.binconv import conv_geometry, pad_nhwc
+from repro_torch.core.binconv import conv_geometry, im2col, pad_nhwc
 from repro_torch.kernels import binary_conv as tbck
 from repro_torch.kernels import binary_dwconv as tbdw
 from repro_torch.kernels import binary_matmul as tbmk
@@ -170,17 +170,20 @@ def test_ops_route_cpu_tensors_to_plain_versions_without_launching():
 
 @pytest.mark.parametrize("P", [1, 7, 49 * 16, 3 * 3 * 64, 112 * 112 * 16, 10 ** 7])
 @pytest.mark.parametrize("D", [5, 32, 43, 150, 1000, 1024])
-def test_picked_plans_are_launchable(P, D):
+@pytest.mark.parametrize("pool", [1, 2, 6])
+def test_picked_plans_are_launchable(P, D, pool):
     """Every pick satisfies the launchers' plan checks (thread count, tile
-    multiples, shared memory), so a compiled program never carries a plan
-    the kernel would refuse."""
-    tbck.check_plan(tops.pick_conv_plan(P, D))
+    sizes, whole pool windows per block, shared memory), so a compiled
+    program never carries a plan the kernel would refuse."""
+    tbck.check_plan(tops.pick_conv_plan(P * pool * pool, D, pool), pool)
     tbdw.check_plan(tops.pick_dwconv_plan(D))
     tbmk.check_plan(tops.pick_matmul_plan(P, D))
     with pytest.raises(ValueError, match="plan"):
         tbdw.check_plan((3, 64))
     with pytest.raises(ValueError, match="plan"):
         tbmk.check_plan((4, 128))
+    with pytest.raises(ValueError, match="plan"):
+        tbck.check_plan((64, 64), pool=9)
 
 
 def _split_k_sum(x, B, alpha, gs, m_active):
@@ -282,10 +285,11 @@ def test_dwconv_geometry_matches_pad_nhwc(H, W, stride):
 
 @pytest.mark.parametrize("batch", [16, 3, 1])
 def test_picked_plans_are_launchable_at_program_shapes(batch):
-    """At every depth-wise and linear instruction shape of MobileNetV1-224
-    and CNN-A (compiled batch, a ragged one and 1) the picks are launchable,
-    and a matmul thread only gets more rows where the card still gets a
-    block for every two SMs."""
+    """At every conv, depth-wise and linear instruction shape of
+    MobileNetV1-224 and CNN-A (compiled batch, a ragged one and 1) the
+    picks are launchable, a matmul thread only gets more rows where the
+    card still gets a block for every two SMs, and the conv's 96-row tile
+    is only picked where it keeps three quarters of the SMs busy."""
     for C in [32] + [cout for _, cout in MOBILENET_BLOCKS[:-1]]:   # dw0..dw12
         tile, cols = tops.pick_dwconv_plan(C)
         tbdw.check_plan((tile, cols))
@@ -294,3 +298,184 @@ def test_picked_plans_are_launchable_at_program_shapes(batch):
         rows, cols = tops.pick_matmul_plan(T, N)
         tbmk.check_plan((rows, cols))
         assert rows == 1 or -(-T // rows) * -(-N // cols) >= 66
+    convs = [(batch * 42 * 42, 5, 2), (batch * 18 * 18, 150, 6),   # CNN-A conv1, conv2
+             (batch * 112 * 112, 32, 1)]                          # the stem
+    hw = 112
+    for stride, cout in MOBILENET_BLOCKS:                         # pw0..pw12
+        hw //= stride
+        convs.append((batch * hw * hw, cout, 1))
+    for P, D, pool in convs:
+        plan = tops.pick_conv_plan(P, D, pool)
+        tbck.check_plan(plan, pool)
+        assert tbck.shared_bytes(plan) <= tbck.SHMEM_LIMIT
+        assert plan[1] >= min(D, 64)
+        assert plan != (96, 128) or tops.conv_blocks(P, D, pool, plan) >= 3 * 132 // 4
+
+
+def _packed_row(k, C):
+    t = k // C
+    return t * -(-C // 8) + (k - t * C) // 8
+
+
+def _kernel_folded_weights(tap, alpha, C, gs, m_active, cols):
+    """The CUDA conv's fold, in float64, read from the packed bytes the way
+    the kernel stages them: per chunk of ``K_CHUNK`` k, packed rows
+    ``[row(k0), row(k_last)]`` of each level copied as aligned 4-byte words
+    from column block ``d0``; each thread's slice of
+    ``K_CHUNK * cols / THREADS`` k walks (tap, channel) and counts down to its group's end, and folds
+    ``w = sum_m alpha[m, g(k), d] * (+-1)`` in level order.  Where C and the
+    group size are multiples of 8 the kernel reads k's byte as row
+    ``(k - k0) // 8``, bit ``k % 8``, which must be the same byte and bit."""
+    M, T, C8, D = tap.shape
+    K = T * C
+    bytewise = C % 8 == 0 and gs % 8 == 0
+    flat = tap.reshape(-1).numpy()
+    al = alpha.numpy().astype(np.float64)
+    w = np.zeros((K, D))
+    kpt = tbck.K_CHUNK * cols // tbck.THREADS
+    for k0 in range(0, K, tbck.K_CHUNK):
+        kl = min(k0 + tbck.K_CHUNK, K) - 1
+        row0 = _packed_row(k0, C)
+        nr = _packed_row(kl, C) - row0 + 1
+        assert 1 <= nr <= tbck.K_CHUNK
+        for d0 in range(0, D, cols):
+            for fd in range(min(cols, D - d0)):
+                d = d0 + fd
+                shift = [((m * T * C8 + row0) * (D & 3) + d0) & 3 for m in range(M)]
+                for fk0 in range(0, tbck.K_CHUNK, kpt):
+                    k = k0 + fk0
+                    if k >= K:
+                        continue
+                    t, ch = divmod(k, C)
+                    g, rem = k // gs, gs - (k - (k // gs) * gs)
+                    for k in range(k, min(k0 + fk0 + kpt, K)):
+                        assert (t, ch, g) == (k // C, k % C, k // gs)
+                        rr = t * C8 + (ch >> 3) - row0
+                        assert 0 <= rr < nr
+                        if bytewise:
+                            assert (rr, ch & 7) == ((k - k0) >> 3, k & 7)
+                            assert k // gs == (k | 7) // gs    # no group ends mid-byte
+                        for m in range(m_active):
+                            start = (m * T * C8 + row0 + rr) * D + d0
+                            s = (shift[m] + rr * (D & 3)) & 3
+                            assert s == start & 3 and s + fd < 4 * (cols // 4 + 1)
+                            byte = int(flat[(start & ~3) + s + fd])
+                            sign = 1.0 if (byte >> (ch & 7)) & 1 else -1.0
+                            w[k, d] += al[m, g, d] * sign
+                        rem -= 1
+                        if rem == 0:
+                            g, rem = g + 1, gs
+                        ch += 1
+                        if ch == C:
+                            ch, t = 0, t + 1
+    return w
+
+
+@pytest.mark.parametrize(
+    "B,H,W,C,D,kh,kw,stride,padding,pool,M,m_active,relu,group_size,cols", [
+        (2, 12, 12, 3, 5, 7, 7, 1, "VALID", 2, 2, None, True, None, 32),   # conv1-like
+        (3, 9, 9, 5, 10, 4, 4, 1, "VALID", 3, 2, 1, True, None, 64),       # conv2-like, C=5
+        (2, 9, 9, 3, 8, 3, 3, 2, "SAME", 1, 2, None, True, None, 32),      # stem, odd map
+        (2, 8, 8, 5, 6, 4, 4, 1, "SAME", 2, 3, 2, True, 20, 128),          # groups span taps
+        (1, 6, 6, 12, 9, 1, 1, 1, "VALID", 1, 2, None, False, 6, 32),      # C=12 ends mid-byte
+        (2, 7, 7, 40, 43, 1, 1, 1, "VALID", 1, 3, 3, False, 20, 64),       # C=40, D=43
+        (1, 5, 5, 64, 150, 1, 1, 1, "VALID", 1, 2, None, True, None, 128),  # D=150
+        (2, 3, 3, 64, 37, 1, 1, 1, "VALID", 1, 2, None, True, 16, 32),     # groups of 16, D=37
+    ])
+def test_conv_kernel_fold_and_row_order_match_the_plain_version(
+        B, H, W, C, D, kh, kw, stride, padding, pool, M, m_active, relu, group_size, cols):
+    """The conv kernel's order of work, in float64: levels folded into one
+    weight per (k, d) from the staged packed bytes, one sum over k per
+    unpooled output row, bias, the max over each window's rows in the
+    kernel's row order (``gemm_rows``), ReLU; against the plain version."""
+    rng = np.random.default_rng(B * H * C + D + cols)
+    K = kh * kw * C
+    gs = group_size or K
+    m = min(m_active or M, M)
+    x = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32))
+    tap = tbck.pack_taps(torch.from_numpy(_signs(rng, (M, K, D))), kh, kw, C)
+    alpha = torch.from_numpy(_alpha(rng, (M, K // gs, D)))
+    bias = torch.from_numpy(rng.standard_normal(D).astype(np.float32))
+    w = _kernel_folded_weights(tap, alpha, C, gs, m, cols)
+    B_pm = tbck.unpack_taps(tap, C).numpy().astype(np.float64)
+    np.testing.assert_allclose(
+        w, np.einsum("mkd,mkd->kd", B_pm[:m],
+                     np.repeat(alpha.numpy().astype(np.float64), gs, axis=1)[:m]),
+        rtol=1e-12)
+    patches = im2col(x, kh, kw, stride, padding).numpy().astype(np.float64)
+    conv = patches @ w + bias.numpy()          # [B, U, V, D]
+    U, V = conv.shape[1:3]
+    want = tref.fused_binary_conv_relu_pool_ref(
+        x, tap, alpha, kh=kh, kw=kw, stride=stride, padding=padding, pool=pool,
+        m_active=m_active, bias=bias, relu=relu).numpy()
+    for rows in tbck.ROWS:
+        idx = tbck.gemm_rows(B, U // pool, V // pool, pool, rows).numpy()
+        nwin = rows // pool ** 2
+        got = np.zeros(want.shape)
+        for blk in range(idx.shape[0]):
+            for wq in range(nwin):
+                q = blk * nwin + wq
+                if q >= B * (U // pool) * (V // pool):
+                    continue
+                b, u, v = idx[blk, wq * pool ** 2:(wq + 1) * pool ** 2].T
+                best = conv[b, u, v].max(axis=0)
+                got.reshape(-1, D)[q] = np.maximum(best, 0) if relu else best
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("B,Uo,Vo,pool", [(3, 21, 21, 2), (5, 3, 3, 6), (2, 7, 5, 1),
+                                          (1, 1, 1, 8), (4, 2, 3, 3)])
+def test_gemm_rows_hold_whole_pool_windows(B, Uo, Vo, pool):
+    """Every unpooled output lands in exactly one row, a block holds whole
+    windows, and a max over each window's rows equals ``amax`` over the
+    ``reshape(B, Uo, p, Vo, p, D)`` the plain version takes."""
+    U, V, pp = Uo * pool, Vo * pool, pool * pool
+    y = torch.from_numpy(np.random.default_rng(B + pool).standard_normal((B, U, V, 4)))
+    want = y.reshape(B, Uo, pool, Vo, pool, 4).amax(dim=(2, 4)).reshape(-1, 4)
+    for rows in tbck.ROWS:
+        if pp > rows:
+            continue
+        idx = tbck.gemm_rows(B, Uo, Vo, pool, rows)
+        used = idx[idx[..., 0] >= 0]
+        assert used.shape[0] == B * U * V
+        assert len({tuple(r) for r in used.tolist()}) == B * U * V
+        nwin = rows // pp
+        assert (idx[:, nwin * pp:] == -1).all()
+        win = idx[:, :nwin * pp].reshape(-1, pp, 3)[:B * Uo * Vo]
+        assert (win >= 0).all()
+        got = y[win[..., 0], win[..., 1], win[..., 2]].amax(dim=1)
+        assert torch.equal(got, want)
+        b, u, v = win[..., 0], win[..., 1] // pool, win[..., 2] // pool
+        assert ((b * Uo + u) * Vo + v == torch.arange(B * Uo * Vo)[:, None]).all()
+
+
+@pytest.mark.parametrize("H,W,k,stride,padding,pool", [
+    (7, 7, 3, 2, "SAME", 1),      # odd map at stride 2: pads (1, 1)
+    (14, 14, 3, 2, "SAME", 1),    # even map at stride 2: pads (0, 1)
+    (224, 224, 3, 2, "SAME", 1),  # the stem
+    (15, 13, 3, 2, "SAME", 1),
+    (8, 8, 4, 1, "SAME", 2),      # CNN-A's even 4x4
+    (21, 21, 4, 1, "VALID", 6),   # conv2
+    (48, 48, 7, 1, "VALID", 2),   # conv1
+])
+def test_conv_border_mask_reads_what_pad_nhwc_pads(H, W, k, stride, padding, pool):
+    """The conv kernel reads the unpadded input: row r's field starts at
+    ``(u*s - pt, v*s - pl)`` with the low-side pads of ``conv_geometry``, and
+    a tap outside ``[0, H) x [0, W)`` reads zero.  That must be what the
+    padded copy holds at ``(u*s + i, v*s + j)`` for every tap, and the
+    output size must be the plain version's."""
+    rng = np.random.default_rng(H * W + k)
+    x = torch.from_numpy(rng.standard_normal((2, H, W, 2)).astype(np.float32))
+    (pt, pl), (U, V) = conv_geometry(H, W, k, k, stride, padding)
+    xp = pad_nhwc(x, k, k, stride, padding)
+    assert (U, V) == ((xp.shape[1] - k) // stride + 1, (xp.shape[2] - k) // stride + 1)
+    idx = tbck.gemm_rows(2, U // pool, V // pool, pool, 128).reshape(-1, 3)
+    idx = idx[idx[:, 0] >= 0]
+    b, u, v = idx.T
+    for i in range(k):
+        for j in range(k):
+            h, w = u * stride - pt + i, v * stride - pl + j
+            inside = (h >= 0) & (h < H) & (w >= 0) & (w < W)
+            got = torch.where(inside[:, None], x[b, h.clamp(0, H - 1), w.clamp(0, W - 1)],
+                              torch.zeros(()))
+            assert torch.equal(got, xp[b, u * stride + i, v * stride + j])

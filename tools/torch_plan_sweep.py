@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time every tile plan of the depth-wise and matmul CUDA kernels at each of
-their instruction shapes in CNN-A (batch 64) and MobileNetV1-224 (batch 16),
+"""Time every tile plan of the three CUDA kernels at each of their
+instruction shapes in CNN-A (batch 64) and MobileNetV1-224 (batch 16),
 on one CUDA card, and check that all plans give bit-identical outputs.
 
     python3 tools/torch_plan_sweep.py       # from the repository root
@@ -30,12 +30,18 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 
 PLANS = {
+    "conv": list(itertools.product((64, 96, 128), (32, 64, 128))),
     "dwconv": list(itertools.product((1, 2, 4, 8), (32, 64, 128, 256))),
     "linear": list(itertools.product((1, 2, 4, 8), (32, 64))),
 }
 
 
 def call(instr, x: torch.Tensor, plan):
+    if instr.kind == "conv":
+        return lambda: ops.binary_conv2d(x, instr.B_tap_packed, instr.alpha, instr.bias,
+                                         kh=instr.kh, kw=instr.kw, stride=instr.stride,
+                                         padding=instr.padding, pool=instr.pool,
+                                         relu=instr.relu, plan=plan)
     if instr.kind == "linear":
         return lambda: ops.binary_matmul(x, instr.B_packed, instr.alpha, K=instr.K,
                                          group_size=instr.group_size, plan=plan)
