@@ -29,14 +29,27 @@ source, all at once) and runs, each phase failing loudly:
      and ReLU as two more launches);
   5. torch.profiler over three warm execute calls of each network: device
      time by kernel name (top 10) and the device's idle share over the
-     window; the chrome traces go to ``chiprun_out/trace_<net>.json``.
+     window; the chrome traces go to ``chiprun_out/trace_<net>.json``;
+  6. serve: MobileNetV1-224 compiled at batch 16 with its golden record
+     (3 rungs, self-tested), saved and loaded back onto the card through a
+     checksummed checkpoint (``torch.equal``, verified, self-tested), served
+     by ``CNNService`` (48 images at rung 0 and 16 at the lowest rung, each
+     ``torch.equal`` to ``deploy.execute`` on the padded batch), one
+     injected error and one injected NaN retried and reconciled with the
+     injector's ledger, an in-memory bit flip caught by the watchdog and
+     hot-reloaded, a flipped bit on disk quarantined by
+     ``load_latest_good``; then the median ``step()`` over 10 warm batches
+     on the host clock, split by CUDA events into assembly + H2D copy,
+     ``execute``, and screen + D2H copy.  Its own launches are counted and
+     every kernel must run; checkpoints go to ``chiprun_out/serve_ckpt/``.
 
 Weights are random, drawn from a seeded generator.  The logits of phases 2
 and 3 are compared with rtol 1e-4 and atol 1e-4·max|logit| (a relative
 floor: the reference's random MobileNet init shrinks activations to ~1e-13
 by the head, and 28 layers of fp32 sums run in another order on each side).
 
-Prints a ``{"kernels": [...]}`` JSON line, nvidia-smi's line, and last
+Prints a ``{"kernels": [...]}`` JSON line (``launches`` counts phases 2
+and 3, ``serve_launches`` phase 6), nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``; per-instruction numbers go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero, printing no result,
 without a card or without the repository's ``src/`` beside it.
@@ -46,6 +59,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -65,6 +80,9 @@ try:
     from repro_torch.kernels.binary_conv import unpack_taps
     from repro_torch.kernels.binary_dwconv import unpack_dw_taps
     from repro_torch.models import cnn
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.serve_cnn import CNNService, default_ladder
+    from repro_torch.testing.faults import FaultInjector, FaultPlan, inject_faults
 except ImportError as e:
     raise SystemExit(f"chip_smoke: FAILED: the port is not importable from "
                      f"{ROOT / 'src'}: {e}") from e
@@ -344,6 +362,199 @@ def profile_forward(arch: str, program, x: torch.Tensor, out_dir: Path,
         print(f"  {us / calls / 1e3:.5f} ms per call  {name[:110]}")
     return split
 
+SERVE_BATCH = 16
+
+
+def serve_phase(params: dict, quant, gen: torch.Generator, dev, out_dir: Path) -> dict:
+    """Phase 6: the serving path of MobileNetV1-224 at batch 16 on the card.
+    Every piece of the path runs inside ``counted`` (launch counts set to 0
+    just before it and added up just after); the reference ``execute``
+    calls that check its answers run outside it."""
+    launches = {k: 0 for k in TPU_KERNELS}
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in ops.launch_counts().items():
+            launches[k] += v
+        return out
+
+    def check_served(svc, done, n, rung):
+        if len(done) != n or any(r.status != "done" for r in done):
+            fail(f"serve: {[r.status for r in done]} (want {n} done), {svc.stats}")
+        want = deploy.execute(svc.program, svc.last_batch, svc.last_schedule).cpu()
+        for r in done:
+            if r.rung != rung or r.m_schedule != svc.last_schedule \
+                    or not torch.equal(r.logits, want[r.batch_index]):
+                fail(f"serve: request {r.id} at rung {r.rung} is not torch.equal to "
+                     f"execute on the padded batch at {svc.last_schedule}")
+
+    def images(n):
+        return [torch.randn(224, 224, 3, generator=gen).numpy() for _ in range(n)]
+
+    shape = (SERVE_BATCH, 224, 224, 3)
+    t0 = time.time()
+    program = counted(lambda: deploy.compile(params, "mobilenet", quant, shape,
+                                             device=dev, golden=True))
+    compile_s = time.time() - t0
+    rungs = program.golden.schedules()
+    if len(rungs) != 3 or program.golden.device != dev.type:
+        fail(f"serve: golden record {len(rungs)} rungs on {program.golden.device!r}, "
+             f"want 3 on {dev.type!r}")
+    t0 = time.perf_counter()
+    again = counted(lambda: deploy.compute_golden(program))
+    golden_s = time.perf_counter() - t0
+    if again != program.golden:
+        fail("serve: a second compute_golden gave other digests on the card")
+    t0 = time.perf_counter()
+    if counted(lambda: deploy.self_test(program)) != 3:
+        fail("serve: self_test did not check 3 rungs")
+    selftest_ms = (time.perf_counter() - t0) * 1e3
+    print(f"phase 6: golden rungs {[list(r) for r in rungs]} (front half = first "
+          f"{len(program) // 2} instructions); compile with golden {compile_s:.2f} s, "
+          f"compute_golden {golden_s * 1e3:.1f} ms, self_test of 3 rungs "
+          f"{selftest_ms:.1f} ms; digests {[d for _, d in program.golden.digests]}")
+
+    ckpt_dir = out_dir / "serve_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt_dir))
+    deploy.save_program(mgr, 1, program)
+    like = deploy.abstract_program("mobilenet", quant, shape, device=dev)
+    loaded = counted(lambda: deploy.load_program(mgr, 1, like, verify=True))
+    if loaded.device != program.device or loaded.golden != program.golden:
+        fail(f"serve: loaded program on {loaded.device}, golden "
+             f"{'equal' if loaded.golden == program.golden else 'differs'}")
+    for a, b in zip(program.instrs, loaded.instrs):
+        for f in a.TREE_FIELDS:
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                fail(f"serve: {a.name}.{f} differs after the checkpoint round trip")
+    counted(lambda: deploy.self_test(loaded))
+    print(f"phase 6: checkpoint round trip onto {loaded.device}: "
+          f"{sum(len(i.TREE_FIELDS) for i in loaded.instrs)} tensors torch.equal, "
+          f"verified, golden re-attached, self_test passed")
+
+    ladder = default_ladder(program)
+    svc = CNNService(program, batch_size=SERVE_BATCH, max_queue=48, selftest_every=2,
+                     checkpoint_manager=mgr, restore_like=like)
+    if any(svc.submit(im).status != "queued" for im in images(48)):
+        fail(f"serve: not all 48 images admitted: {svc.stats}")
+    for _ in range(3):
+        check_served(svc, counted(svc.step), SERVE_BATCH, 0)
+    low = CNNService(program, batch_size=SERVE_BATCH, initial_rung=len(ladder) - 1)
+    for im in images(16):
+        low.submit(im)
+    check_served(low, counted(low.step), SERVE_BATCH, len(ladder) - 1)
+    if low.last_schedule != ladder[-1]:
+        fail(f"serve: lowest rung served {low.last_schedule}, ladder ends {ladder[-1]}")
+    print(f"phase 6: served 48 images at rung 0 and 16 at rung {len(ladder) - 1} "
+          f"{list(ladder[-1])}, each torch.equal to execute; watchdog "
+          f"{svc.stats['selftest_runs']} self-tests")
+
+    faults = {}
+    for kind, plan in (("error", FaultPlan(error_rate=1.0)), ("nan", FaultPlan(nan_rate=1.0))):
+        with inject_faults(plan) as inj:
+            def clear_on_sleep(dt, inj=inj):
+                time.sleep(dt)
+                inj.plan = FaultPlan()
+            fsvc = CNNService(program, batch_size=SERVE_BATCH, backoff_s=0.001,
+                              sleep=clear_on_sleep)
+            for im in images(4):
+                fsvc.submit(im)
+            done = counted(fsvc.step)
+        st = fsvc.stats
+        check_served(fsvc, done, 4, 0)
+        seen = st["exec_exceptions"] if kind == "error" else st["nonfinite_detected"]
+        other = st["nonfinite_detected"] if kind == "error" else st["exec_exceptions"]
+        if not (st["retries"] == 1 and seen == inj.counts[kind] == 1 and other == 0):
+            fail(f"serve: injected {kind} not reconciled: stats {st}, injector {inj.counts}")
+        faults[kind] = {"stats": st, "injected": inj.counts}
+    print("phase 6: one injected error and one injected NaN each retried once and "
+          "served clean; stats reconcile with the injector's counts")
+
+    for im in images(16):
+        svc.submit(im)
+    check_served(svc, counted(svc.step), SERVE_BATCH, 0)
+    clean = svc.program
+    svc.program = FaultInjector(FaultPlan(seed=0)).flip_bit_in_program(svc.program)
+    for im in images(16):
+        svc.submit(im)
+    done = counted(svc.step)
+    st = svc.stats
+    if st["selftest_failures"] != 1 or st["reloads"] != 1 or svc.last_reload_step != 1:
+        fail(f"serve: in-memory bit flip not recovered: {st}")
+    if svc.program.device != program.device:
+        fail(f"serve: reloaded onto {svc.program.device}")
+    check_served(svc, done, SERVE_BATCH, 0)
+    want = deploy.execute(clean, svc.last_batch, svc.last_schedule).cpu()
+    if not all(torch.equal(r.logits, want[r.batch_index]) for r in done):
+        fail("serve: the batch after the hot reload differs from the clean program's")
+    step_dir = deploy.save_program(mgr, 2, program)
+    flipped = FaultInjector(FaultPlan(seed=0)).flip_bit_on_disk(step_dir)
+    step, good = counted(lambda: deploy.load_latest_good(mgr, like))
+    if step != 1 or [s for s, _ in mgr.quarantined] != [2] or good.device != program.device:
+        fail(f"serve: load_latest_good returned step {step}, quarantined "
+             f"{mgr.quarantined}")
+    print(f"phase 6: in-memory bit flip caught by the watchdog and hot-reloaded from "
+          f"step 1 (selftest_failures 1, reloads 1, next batch torch.equal to the clean "
+          f"program's); disk flip in {flipped} of step 2 quarantined "
+          f"({mgr.quarantine_dirs()}), load_latest_good returned step 1")
+
+    timing = serve_timing(program, images)
+    if any(v == 0 for v in launches.values()):
+        fail(f"serve: a kernel of the path never launched in phase 6: {launches}")
+    print(f"phase 6: launches {launches}")
+    return {"rungs": [list(r) for r in rungs], "compile_s": compile_s,
+            "compute_golden_ms": golden_s * 1e3, "self_test_3_rungs_ms": selftest_ms,
+            "faults": faults, "recovery": svc.stats, "disk_flip_leaf": flipped,
+            "timing": timing, "launches": launches}
+
+
+def serve_timing(program, images, warm: int = 2, steps: int = 10) -> dict:
+    """Median ``step()`` of a service at batch 16 on the host clock, and its
+    split on the device timeline by CUDA events: before ``step`` -> before
+    ``execute`` (assembly + H2D copy), -> after ``execute`` was issued and
+    ran (execute), -> after ``step`` returned (screen, D2H copy and the
+    service's bookkeeping)."""
+    def timed(prog, x, m_active):
+        ev["exec0"].record()
+        y = deploy.execute(prog, x, m_active)
+        ev["exec1"].record()
+        return y
+
+    svc = CNNService(program, batch_size=SERVE_BATCH, execute_fn=timed)
+    rows = []
+    for i in range(warm + steps):
+        for im in images(SERVE_BATCH):
+            svc.submit(im)
+        ev = {k: torch.cuda.Event(enable_timing=True)
+              for k in ("start", "exec0", "exec1", "end")}
+        torch.cuda.synchronize()
+        ev["start"].record()
+        t0 = time.perf_counter()
+        done = svc.step()
+        t1 = time.perf_counter()
+        ev["end"].record()
+        ev["end"].synchronize()
+        if len(done) != SERVE_BATCH or any(r.status != "done" for r in done):
+            fail(f"serve timing: step {i} served {[r.status for r in done]}")
+        if i >= warm:
+            rows.append({"step_ms": (t1 - t0) * 1e3,
+                         "assemble_h2d_ms": ev["start"].elapsed_time(ev["exec0"]),
+                         "execute_ms": ev["exec0"].elapsed_time(ev["exec1"]),
+                         "screen_d2h_ms": ev["exec1"].elapsed_time(ev["end"])})
+    x = svc.last_batch
+    alone = loop_ms(lambda: deploy.execute(program, x))
+    med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    out = {**med, "images_per_s": SERVE_BATCH / med["step_ms"] * 1e3,
+           "execute_alone_ms": alone, "steps": rows}
+    print(f"phase 6: serve at batch {SERVE_BATCH} over {steps} warm steps: median step "
+          f"{med['step_ms']:.4f} ms ({out['images_per_s']:.1f} images/s); split "
+          f"assembly + H2D {med['assemble_h2d_ms']:.4f} ms, execute "
+          f"{med['execute_ms']:.4f} ms, screen + D2H {med['screen_d2h_ms']:.4f} ms; "
+          f"execute alone {alone:.4f} ms")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -377,7 +588,8 @@ def main() -> int:
     programs = {}
     for arch, (params, shape) in nets.items():
         t0 = time.time()
-        programs[arch] = deploy.compile(params, arch, quant, shape, device=dev)
+        programs[arch] = deploy.compile(params, arch, quant, shape, device=dev,
+                                        golden=False)
         torch.cuda.synchronize()
         print(f"compile {arch} {shape}: {len(programs[arch])} instructions, plans "
               f"{[tuple(i.plan) for i in programs[arch].instrs]}, {time.time() - t0:.1f} s")
@@ -408,6 +620,8 @@ def main() -> int:
     profiles = {arch: profile_forward(arch, program, inputs[arch], out_dir)
                 for arch, program in programs.items()}
 
+    serve = serve_phase(nets["mobilenet"][0], quant, gen, dev, out_dir)
+
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
         tot = totals[name]
@@ -418,10 +632,12 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": tot["library_ms"], "instr_ms": tot["instr_ms"]})
+            "library_ms": tot["library_ms"], "instr_ms": tot["instr_ms"],
+            "serve_launches": serve["launches"][name]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
-         "kernels": kernels, "layers": rows, "forward": forward, "profiles": profiles},
+         "kernels": kernels, "layers": rows, "forward": forward, "profiles": profiles,
+         "serve": serve},
         indent=1))
     print("timings: ms, plain_ms, library_ms and bound_ms sum one forward of CNN-A "
           "(batch 64) and one of MobileNetV1-224 (batch 16); launches counts phases 2 "

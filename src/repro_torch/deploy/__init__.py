@@ -6,13 +6,21 @@
     logits = deploy.execute(program, x)                  # all packed levels
     logits = deploy.execute(program, x, m_active=1)      # §IV-D global switch
     logits = deploy.execute(program, x, m_active=[1, 2, 2, 2, 2])  # per layer
+    deploy.self_test(program)                            # golden replay
 """
-from repro_torch.deploy.compiler import compile
+from repro_torch.deploy.compiler import (ProgramIntegrityError, abstract_program,
+                                         compile, load_latest_good, load_program,
+                                         save_program)
 from repro_torch.deploy.executor import execute, execute_reference
 from repro_torch.deploy.program import (BinArrayProgram, ConvInstr, DWConvInstr,
-                                        LayerStats, LinearInstr, TilePlan)
+                                        GoldenRecord, LayerStats, LinearInstr,
+                                        TilePlan)
+from repro_torch.deploy.selftest import (SelfTestFailure, compute_golden,
+                                         golden_rungs, self_test)
 
 __all__ = [
-    "BinArrayProgram", "ConvInstr", "DWConvInstr", "LayerStats", "LinearInstr",
-    "TilePlan", "compile", "execute", "execute_reference",
+    "BinArrayProgram", "ConvInstr", "DWConvInstr", "GoldenRecord", "LayerStats",
+    "LinearInstr", "ProgramIntegrityError", "SelfTestFailure", "TilePlan",
+    "abstract_program", "compile", "compute_golden", "execute", "execute_reference",
+    "golden_rungs", "load_latest_good", "load_program", "save_program", "self_test",
 ]

@@ -10,10 +10,19 @@ done once, here:
      (each pick bumps ``plan_pick_count()``) and frozen into the
      instruction, so ``execute`` picks nothing.
   3. **Account** — shapes, MACs and packed weight bytes in ``LayerStats``.
+  4. **Attest** — a :class:`GoldenRecord` of the program's own outputs at
+     every §IV-D rung (``deploy/selftest.py``), unless ``golden=False``.
 
-There is no golden record, verifier or save/load in the port yet.
+Below ``compile``: ``abstract_program`` (a restore target built without
+binarizing anything) and the checkpoint round trip through
+``checkpoint/manager.py`` (``save_program`` / ``load_program`` /
+``load_latest_good``), in the JAX package's on-disk format.  The port's
+golden record travels in the manifest under ``"golden_torch"``, never the
+JAX package's ``"golden"``: each package only attaches its own.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -22,7 +31,8 @@ from repro_torch.core import binconv
 from repro_torch.core import binlinear as bl
 from repro_torch.core.binlinear import QuantConfig
 from repro_torch.deploy.program import (BinArrayProgram, ConvInstr, DWConvInstr,
-                                        LayerStats, LinearInstr, TilePlan)
+                                        GoldenRecord, LayerStats, LinearInstr,
+                                        TilePlan)
 from repro_torch.kernels import ops
 from repro_torch.models import cnn
 
@@ -139,7 +149,8 @@ def _compile_linear(spec, p, shape, quant, dev):
 
 
 def compile(params: dict, arch, quant: QuantConfig, input_shape: tuple[int, ...], *,
-            device="cuda") -> BinArrayProgram:
+            device="cuda", golden: bool | int = True,
+            verify: bool = False) -> BinArrayProgram:
     """Compile a network into a :class:`BinArrayProgram` on ``device``.
 
     params:      fp tree (binarized here with ``quant``) or a packed tree
@@ -147,6 +158,10 @@ def compile(params: dict, arch, quant: QuantConfig, input_shape: tuple[int, ...]
                  it is; both come from ``models/cnn.py`` or ``convert.py``.
     arch:        "cnn_a" | "mobilenet" or an explicit LayerSpec sequence.
     input_shape: (B, H, W, C) the tile plans are picked for.
+    golden:      record a :class:`GoldenRecord` (``deploy/selftest.py``):
+                 True uses probe seed 0, an int is the seed, False skips it.
+    verify:      run ``repro_torch.analysis.verify_program`` and raise
+                 ``ProgramVerificationError`` on any ERROR finding.
     """
     dev = resolve_device(device)
     if len(input_shape) != 4:
@@ -162,6 +177,155 @@ def compile(params: dict, arch, quant: QuantConfig, input_shape: tuple[int, ...]
         else:
             instr, shape = _compile_linear(spec, p, shape, quant, dev)
         instrs.append(instr)
-    return BinArrayProgram(instrs=tuple(instrs),
-                           arch=arch if isinstance(arch, str) else "custom",
-                           input_shape=tuple(int(d) for d in input_shape))
+    program = BinArrayProgram(instrs=tuple(instrs),
+                              arch=arch if isinstance(arch, str) else "custom",
+                              input_shape=tuple(int(d) for d in input_shape))
+    if golden is not False:
+        from repro_torch.deploy.selftest import compute_golden
+
+        seed = 0 if golden is True else int(golden)
+        program = dataclasses.replace(program, golden=compute_golden(program, seed=seed))
+    if verify:
+        from repro_torch.analysis.verify import assert_verified
+
+        assert_verified(program)
+    return program
+
+
+def _empty_packed(spec, w_shape, quant: QuantConfig, dev: torch.device) -> dict:
+    """Uninitialised tensors of the packed layer ``compile`` would make from
+    fp weights of ``w_shape``."""
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    M = quant.M
+    if spec.kind == "conv":
+        kh, kw, C, D = w_shape
+        K = kh * kw * C
+        G = 1 if quant.group_size is None else K // quant.group_size
+        return {"B_tap_packed": empty(M, kh * kw, -(-C // 8), D, dtype=torch.uint8),
+                "alpha": empty(M, G, D), "b": empty(D)}
+    if spec.kind == "dwconv":
+        kh, kw, _, C = w_shape
+        return {"B_tap_packed": empty(M, kh * kw, -(-C // 8), dtype=torch.uint8),
+                "alpha": empty(M, C), "b": empty(C)}
+    K, N = w_shape
+    G = 1 if quant.group_size is None else K // quant.group_size
+    return {"B_packed": empty(M, -(-K // 8), N, dtype=torch.uint8),
+            "alpha": empty(M, G, N), "b": empty(N)}
+
+
+def abstract_program(arch: str, quant: QuantConfig, input_shape: tuple[int, ...], *,
+                     width_mult: float = 1.0, n_classes: int = 1000,
+                     device="cuda") -> BinArrayProgram:
+    """The program ``compile`` would make for ``arch`` at ``input_shape``:
+    the same instructions, plans and stats, with uninitialised tensors of
+    the packed shapes on ``device`` and no golden record.  No binarization
+    runs.  It is the restore target of :func:`load_program`."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(0)
+    if arch == "cnn_a":
+        fp = cnn.init_cnn_a(gen, device="cpu")
+    elif arch == "mobilenet":
+        fp = cnn.init_mobilenet(gen, width_mult=width_mult, n_classes=n_classes,
+                                device="cpu")
+    else:
+        raise ValueError(f"unknown arch {arch!r}; expected one of {ARCHS}")
+    packed = {s.name: _empty_packed(s, tuple(fp[s.name]["w"].shape), quant, dev)
+              for s in _specs(arch)}
+    return compile(packed, arch, quant, input_shape, device=dev, golden=False)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint round trip (checkpoint/manager.py)
+# ---------------------------------------------------------------------------
+
+GOLDEN_KEY = "golden_torch"   # manifest ``extra`` key of the port's record
+
+
+def save_program(manager, step: int, program: BinArrayProgram, *,
+                 extra: dict | None = None) -> str:
+    """Persist a compiled program's tensors under ``program/...``; plans and
+    stats come back from the restore target.  The program's
+    :class:`GoldenRecord` goes into the digest-protected manifest under
+    ``"golden_torch"``, so :func:`load_program` re-attaches it to an
+    abstract target."""
+    meta = {"deploy": program.totals()}
+    if program.golden is not None:
+        meta[GOLDEN_KEY] = program.golden.to_json()
+    meta.update(extra or {})
+    return manager.save(step, {"program": program}, extra=meta)
+
+
+def _attach_golden(program: BinArrayProgram, extra) -> BinArrayProgram:
+    """Re-attach the manifest's port golden record when the restore target
+    had none (restore takes every non-tensor field from the target)."""
+    if program.golden is None and isinstance(extra, dict) and extra.get(GOLDEN_KEY):
+        return dataclasses.replace(program,
+                                   golden=GoldenRecord.from_json(extra[GOLDEN_KEY]))
+    return program
+
+
+class ProgramIntegrityError(ValueError):
+    """A restored program failed static verification — a corrupt, truncated
+    or stale checkpoint that must not reach ``execute``.  Carries the ERROR
+    findings as ``.findings``."""
+
+    def __init__(self, message: str, findings=()):
+        super().__init__(message)
+        self.findings = tuple(findings)
+
+
+def _check_verified(program: BinArrayProgram, where: str) -> None:
+    from repro_torch.analysis.verify import verify_program
+
+    errors = [f for f in verify_program(program) if f.severity == "ERROR"]
+    if errors:
+        raise ProgramIntegrityError(
+            f"restored program ({where}) failed verification with "
+            f"{len(errors)} ERROR finding(s):\n  " + "\n  ".join(map(str, errors)),
+            findings=errors)
+
+
+def load_program(manager, step: int, like: BinArrayProgram, *,
+                 verify: bool = True) -> BinArrayProgram:
+    """Restore a program saved with :func:`save_program` (by this package
+    or by the JAX package's ``save_program``) onto ``like``'s device.
+    ``like`` supplies the structure, plans and stats: :func:`abstract_program`
+    with the same arch/quant/input_shape, or any same-shaped program.
+
+    By default the restored program is verified (``verify_program``) and
+    any ERROR finding raises :class:`ProgramIntegrityError`.  A program the
+    JAX package saved carries no port golden record: attach one with
+    ``dataclasses.replace(program, golden=compute_golden(program))``.
+    """
+    restored, extra = manager.restore(step, {"program": like})
+    program = _attach_golden(restored["program"], extra)
+    if verify:
+        _check_verified(program, f"step {step}")
+    return program
+
+
+def load_latest_good(manager, like: BinArrayProgram, *, verify: bool = True,
+                     selftest: bool = True):
+    """Restore the newest checkpoint step whose program passes every gate.
+
+    The walk runs newest-first; a step failing digest verification, static
+    verification (``verify``) or the golden self-test (``selftest``, when
+    the step carries a port record made on the device type it is restored
+    onto) is quarantined with its reason and the walk goes on.  Returns
+    ``(step, program)``; raises ``NoGoodCheckpoint`` when every step is bad.
+    """
+    def validate(restored, extra):
+        program = _attach_golden(restored["program"], extra)
+        if verify:
+            _check_verified(program, "latest good")
+        if selftest and program.golden is not None \
+                and program.golden.device == program.device.type:
+            from repro_torch.deploy.selftest import self_test
+
+            self_test(program)
+
+    step, restored, extra = manager.restore_latest_good(
+        {"program": like}, validate=validate)
+    return step, _attach_golden(restored["program"], extra)

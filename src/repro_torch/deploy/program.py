@@ -11,6 +11,12 @@ a frozen Hopper tile plan; the executor is a loop over the stream.
     DWConvInstr   CONV, channel-wise (§V-A3)           csrc/binary_dwconv.cu
     LinearInstr   FC                                   csrc/binary_matmul.cu
     ============  ===================================  =====================
+
+The tensor fields of each instruction and the program's instruction
+stream are named in ``TREE_FIELDS``: ``checkpoint/manager.py`` flattens a
+program through them to the JAX package's leaf paths
+(``program/instrs/3/B_tap_packed``), in the JAX registration order, and
+rebuilds it around restored tensors with every other field kept.
 """
 from __future__ import annotations
 
@@ -64,6 +70,7 @@ class ConvInstr:
     stats: LayerStats = LayerStats((), ())
 
     kind = "conv"
+    TREE_FIELDS = ("B_tap_packed", "alpha", "bias")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -84,6 +91,7 @@ class DWConvInstr:
     stats: LayerStats = LayerStats((), ())
 
     kind = "dwconv"
+    TREE_FIELDS = ("B_tap_packed", "alpha", "bias")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -103,20 +111,67 @@ class LinearInstr:
     stats: LayerStats = LayerStats((), ())
 
     kind = "linear"
+    TREE_FIELDS = ("B_packed", "alpha", "bias")
 
 
 Instr = ConvInstr | DWConvInstr | LinearInstr
+
+
+@dataclasses.dataclass(frozen=True)
+class GoldenRecord:
+    """Compile-time self-test reference: a seeded probe + output digests.
+
+    ``deploy.compile`` runs a canonical probe (batch 1, ``torch.randn``
+    from a seeded CPU generator, see ``deploy/selftest.py``) through every
+    §IV-D rung once and records the CRC32 of each output; ``self_test``
+    replays it.  The CUDA kernels and the plain versions reduce in their own
+    orders, so a digest holds only on the device type it was made on,
+    ``device`` ("cuda" or "cpu").  The JSON schema is the JAX package's
+    plus that field.
+    """
+
+    seed: int
+    input_shape: tuple[int, ...]                       # probe shape, batch 1
+    digests: tuple[tuple[tuple[int, ...], str], ...]   # (schedule, crc32 hex)
+    device: str                                        # device type of the digests
+
+    def schedules(self) -> tuple[tuple[int, ...], ...]:
+        return tuple(s for s, _ in self.digests)
+
+    def digest_for(self, schedule: tuple[int, ...]) -> str | None:
+        for s, d in self.digests:
+            if s == tuple(schedule):
+                return d
+        return None
+
+    def to_json(self) -> dict:
+        return {"seed": self.seed, "input_shape": list(self.input_shape),
+                "digests": [[list(s), d] for s, d in self.digests],
+                "device": self.device}
+
+    @classmethod
+    def from_json(cls, doc: dict) -> "GoldenRecord":
+        return cls(seed=int(doc["seed"]),
+                   input_shape=tuple(int(v) for v in doc["input_shape"]),
+                   digests=tuple((tuple(int(m) for m in s), str(d))
+                                 for s, d in doc["digests"]),
+                   device=str(doc["device"]))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class BinArrayProgram:
     """A compiled network: the instruction stream plus the (B, H, W, C) the
     plans were picked for.  Other batch sizes run correctly, only with
-    plans picked for another size."""
+    plans picked for another size.  ``golden`` is the compile-time
+    :class:`GoldenRecord` (None for ``compile(..., golden=False)`` and
+    ``abstract_program``)."""
 
     instrs: tuple[Instr, ...]
     arch: str = ""
     input_shape: tuple[int, ...] = ()
+    golden: GoldenRecord | None = None
+
+    TREE_FIELDS = ("instrs",)
 
     def __len__(self) -> int:
         return len(self.instrs)
@@ -124,6 +179,10 @@ class BinArrayProgram:
     @property
     def device(self) -> torch.device:
         return self.instrs[0].alpha.device
+
+    @property
+    def m_max(self) -> int:
+        return max(i.M for i in self.instrs)
 
     def resolve_schedule(self, m_active) -> tuple[int, ...]:
         """Normalize ``m_active`` into one static level count per
@@ -145,3 +204,37 @@ class BinArrayProgram:
         if any(m < 1 for m in sched):
             raise ValueError(f"schedule entries must be >= 1: {sched}")
         return tuple(min(m, i.M) for m, i in zip(sched, self.instrs))
+
+    def layer_stats(self) -> list[dict]:
+        """One JSON-able dict per instruction: geometry, frozen tile plan,
+        MACs and packed weight bytes."""
+        out = []
+        for idx, i in enumerate(self.instrs):
+            d = {
+                "index": idx, "name": i.name, "kind": i.kind,
+                "pre": i.pre, "relu": bool(i.relu), "M": int(i.M),
+                "in_shape": list(i.stats.in_shape),
+                "out_shape": list(i.stats.out_shape),
+                "macs": int(i.stats.macs),
+                "weight_bytes": int(i.stats.weight_bytes),
+                "plan": i.plan._asdict(),
+            }
+            if i.kind in ("conv", "dwconv"):
+                d.update(kh=i.kh, kw=i.kw, stride=i.stride,
+                         padded_in=list(i.stats.padded_in))
+            if i.kind == "conv":
+                d.update(padding=i.padding, pool=i.pool, group_size=int(i.group_size))
+            if i.kind == "linear":
+                d.update(K=int(i.K), group_size=int(i.group_size))
+            out.append(d)
+        return out
+
+    def totals(self) -> dict:
+        """Whole-program roll-up of the per-layer stats."""
+        return {
+            "arch": self.arch,
+            "input_shape": list(self.input_shape),
+            "n_instructions": len(self.instrs),
+            "macs": int(sum(i.stats.macs for i in self.instrs)),
+            "weight_bytes": int(sum(i.stats.weight_bytes for i in self.instrs)),
+        }

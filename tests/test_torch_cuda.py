@@ -237,3 +237,41 @@ def test_matmul_launcher_refuses_more_levels_than_it_was_built_for(card):
                       plan=(1, 32)).shape == (4, 8)
     with pytest.raises(ValueError, match="at most 4 levels"):
         bmk.launch(x, packed, alpha, K=16, group_size=16, m_active=5, plan=(1, 32))
+
+
+def test_golden_checkpoint_and_service_on_the_card(card, tmp_path):
+    """The serving path on the card: the golden record is made and replayed
+    there, catches a flipped bit, survives a checkpoint round trip onto the
+    card, and one served batch is bit-exact to ``execute``."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.serve_cnn import CNNService
+    from repro_torch.testing.faults import FaultInjector, FaultPlan
+
+    gen = torch.Generator().manual_seed(0)
+    quant = QuantConfig(mode="binary", M=2)
+    shape = (8, 48, 48, 3)
+    program = deploy.compile(cnn.init_cnn_a(gen, device=card), "cnn_a", quant, shape,
+                             device=card)
+    assert program.golden.device == "cuda" and deploy.self_test(program) == 3
+    assert deploy.compute_golden(program) == program.golden
+    bad = FaultInjector(FaultPlan(seed=1)).flip_bit_in_program(program)
+    assert bad.instrs[0].B_tap_packed.device.type == "cuda"
+    with pytest.raises(deploy.SelfTestFailure):
+        deploy.self_test(bad)
+    mgr = CheckpointManager(str(tmp_path))
+    deploy.save_program(mgr, 1, program)
+    like = deploy.abstract_program("cnn_a", quant, shape, device=card)
+    loaded = deploy.load_program(mgr, 1, like)
+    assert loaded.device.type == "cuda" and loaded.golden == program.golden
+    for a, b in zip(program.instrs, loaded.instrs):
+        for f in a.TREE_FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), (a.name, f)
+    assert deploy.self_test(loaded) == 3
+    svc = CNNService(loaded, batch_size=8, selftest_every=1, checkpoint_manager=mgr,
+                     restore_like=like)
+    for _ in range(5):
+        svc.submit(torch.randn(48, 48, 3, generator=gen).numpy())
+    done = svc.step()
+    assert [r.status for r in done] == ["done"] * 5 and svc.last_batch.device.type == "cuda"
+    want = deploy.execute(program, svc.last_batch, svc.last_schedule).cpu()
+    assert all(torch.equal(r.logits, want[r.batch_index]) for r in done)
