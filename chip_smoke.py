@@ -41,17 +41,34 @@ source, all at once) and runs, each phase failing loudly:
      ``load_latest_good``; then the median ``step()`` over 10 warm batches
      on the host clock, split by CUDA events into assembly + H2D copy,
      ``execute``, and screen + D2H copy.  Its own launches are counted and
-     every kernel must run; checkpoints go to ``chiprun_out/serve_ckpt/``.
+     every kernel must run; checkpoints go to ``chiprun_out/serve_ckpt/``;
+  7. LM: gemma-2b at full width and depth (18 layers, d_model 2048, 8 heads
+     x 256, MQA, d_ff 16384, vocab 256000, GeGLU, tied embeddings), fp32,
+     M=2, its weights drawn on the card and binarized there layer by layer.
+     The matmul kernel against its plain version at every LM linear shape
+     (T = 1, 8 and the prefill bucket 64; m_active 1 and 2; the second plan
+     bit-identical); ``Server(max_batch=8, max_len=256)`` serving 8 requests
+     (prompts of 5-60 tokens, 16 new tokens, m_active None / 1 / a per-layer
+     schedule) with 18 x 7 matmul launches per decode group step, a mixed
+     request equal to the same request served alone, bulk admission equal
+     to token-wise admission; the card against the plain versions on a CPU
+     copy cut to 2 layers (prefill of 16 tokens + 2 decode steps); then the
+     admission of a 64-token prompt, one decode step at 8 active slots
+     (CUDA events and host clock), a profiler window of 3 decode steps
+     (``chiprun_out/trace_gemma.json``: kernels by name, idle share, the
+     matmul kernel against the LM head's product), and per LM linear shape
+     the kernel, its plain version, ``x @ W_hat`` and the bound.
 
 Weights are random, drawn from a seeded generator.  The logits of phases 2
 and 3 are compared with rtol 1e-4 and atol 1e-4·max|logit| (a relative
 floor: the reference's random MobileNet init shrinks activations to ~1e-13
 by the head, and 28 layers of fp32 sums run in another order on each side).
 
-Prints a ``{"kernels": [...]}`` JSON line (``launches`` counts phases 2
-and 3, ``serve_launches`` phase 6), nvidia-smi's line, and last
-``{"ok": true, "device": {...}}``; per-instruction numbers go to
-``chiprun_out/chip_smoke.json``.  Exits non-zero, printing no result,
+Prints a ``{"kernels": [...]}`` JSON line (``launches`` counts the main
+paths of phases 2, 3 and 7, ``cnn_launches`` phases 2-3, ``serve_launches``
+phase 6 and ``lm_launches`` phase 7's serving), nvidia-smi's line, and
+last ``{"ok": true, "device": {...}}``; per-instruction numbers go to
+``chiprun_out/chip_smoke.json``, phase 7's under ``"lm"``.  Exits non-zero, printing no result,
 without a card or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
@@ -66,6 +83,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -76,7 +94,11 @@ try:
     from repro_torch.core import binarize as bz
     from repro_torch.core.binconv import pad_nhwc
     from repro_torch.core.binlinear import QuantConfig
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import api, common as cm, transformer as tf
     from repro_torch.kernels.binary_conv import unpack_taps
     from repro_torch.kernels.binary_dwconv import unpack_dw_taps
     from repro_torch.models import cnn
@@ -556,6 +578,346 @@ def serve_timing(program, images, warm: int = 2, steps: int = 10) -> dict:
     return out
 
 
+LM_BATCH, LM_LEN, LM_BUCKET, LM_NEW = 8, 256, 64, 16
+LM_LINEARS = {  # one weight of each LM linear shape, by its path in a layer
+    "q/o 2048->2048": ("attn", "wq"), "k/v 2048->256": ("attn", "wk"),
+    "gate/up 2048->16384": ("ffn", "w_gate"), "down 16384->2048": ("ffn", "w_down")}
+
+
+def lm_config():
+    """gemma-2b at full width and depth, fp32, M=2 binary linears."""
+    return get_config("gemma_2b").replace(
+        dtype="float32", quant=QuantConfig(mode="binary", M=2, K_iters=8))
+
+
+def build_lm(cfg, dev) -> tuple[dict, dict]:
+    """Phase 7: the weights drawn on the card from a seeded generator, each
+    layer binarized as soon as it is drawn (its fp32 latent weights freed),
+    so the 7.9 GB of fp32 layer weights are never held at once."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = {"embed": cm.init_embedding(gen, cfg.vocab, cfg.d_model, cfg.torch_dtype,
+                                         device=dev)}
+    layers, bin_s = [], 0.0
+    for _ in range(cfg.n_layers):
+        fp = tf.init_layer(gen, cfg, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        layers.append(api.binarize_model_params(cfg, fp))
+        torch.cuda.synchronize()
+        bin_s += time.perf_counter() - t1
+        del fp
+    params["layers"] = cm.stack_trees(layers)
+    params["final_norm"] = cm.init_rmsnorm(cfg.d_model, cfg.torch_dtype, device=dev)
+    del layers
+    torch.cuda.synchronize()
+    leaves = []
+    cm.tree_map(leaves.append, params)
+    info = {"build_s": time.perf_counter() - t0, "binarize_s": bin_s,
+            "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "packed_gb": sum(t.numel() for t in leaves if t.dtype == torch.uint8) / 1e9}
+    print(f"phase 7: gemma-2b {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}: built in {info['build_s']:.2f} s, of which binarize "
+          f"{bin_s:.2f} s (Algorithm 2, M=2, K_iters 8); packed weights "
+          f"{info['packed_gb']:.3f} GB; card memory in use {info['memory_allocated_gb']:.2f} GB "
+          f"(peak {info['max_memory_allocated_gb']:.2f} GB)")
+    return params, info
+
+
+def lm_weight(params, name: str, layer: int = 0) -> dict:
+    a, w = LM_LINEARS[name]
+    return cm.tree_index(params["layers"][a][w], layer)
+
+
+def check_lm_kernels(params, gen: torch.Generator, dev) -> float:
+    """Phase 7: the matmul kernel against its plain version at every LM
+    linear shape, T = 1, 8 and 64, m_active 1 and 2; the second plan must
+    give the same bits."""
+    max_err, checks = 0.0, 0
+    for name in LM_LINEARS:
+        p = lm_weight(params, name)
+        K, N = p["B_packed"].shape[1] * 8, p["B_packed"].shape[2]
+        for T in (1, LM_BATCH, LM_BUCKET):
+            if ops.pick_matmul_plan(T, N) == ALT_PLAN["linear"]:
+                fail(f"LM {name} T={T}: the picked plan is the second plan")
+            x = torch.randn(T, K, generator=gen).to(dev)
+            for m in (1, 2):
+                kw = dict(K=K, group_size=K, m_active=m)
+                got = ops.binary_matmul(x, p["B_packed"], p["alpha"], **kw)
+                want = kref.binary_matmul_ref(x, p["B_packed"], p["alpha"], **kw)
+                alt = ops.binary_matmul(x, p["B_packed"], p["alpha"], plan=ALT_PLAN["linear"],
+                                        **kw)
+                err = float((got - want).abs().max())
+                max_err = max(max_err, err)
+                if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+                    fail(f"LM {name} T={T} m={m}: kernel vs plain max |d| {err:.3g}")
+                if not torch.equal(got, alt):
+                    fail(f"LM {name} T={T} m={m}: plans differ")
+                checks += 1
+    torch.cuda.synchronize()
+    print(f"phase 7: {checks} LM-shape kernel-vs-plain checks passed (rtol {RTOL}, atol "
+          f"{ATOL}), second plan bit-identical; max |d| {max_err:.3g}")
+    return max_err
+
+
+def top2_margin(logits: np.ndarray) -> float:
+    top = np.sort(logits)[-2:]
+    return float(top[1] - top[0])
+
+
+def same_stream(where: str, a: Request, b: Request, rtol=2e-5, atol=5e-5) -> None:
+    """Tokens equal and last logits allclose (the JAX serving tests'
+    tolerance); a token mismatch reports the top-2 margin of the logits."""
+    if a.out_tokens != b.out_tokens:
+        fail(f"{where}: tokens {a.out_tokens} != {b.out_tokens}; top-2 margin of the last "
+             f"logits {top2_margin(a.last_logits):.3g} / {top2_margin(b.last_logits):.3g}")
+    if not np.allclose(a.last_logits, b.last_logits, rtol=rtol, atol=atol):
+        fail(f"{where}: last logits max |d| {np.abs(a.last_logits - b.last_logits).max():.3g}")
+
+
+def serve_lm(cfg, params, dev) -> dict:
+    """Phase 7, the main path: 8 requests through ``Server`` until done.
+    Launch counts are set to 0 just before each admission and each step
+    and read just after; every decode group step and every bulk admission
+    must launch the matmul kernel 18 x 7 times."""
+    per_pass = cfg.n_layers * 7
+    rng = np.random.default_rng(0)
+    sched = tuple(1 + (i % 2) for i in range(cfg.n_layers))
+    modes = [None, 1, sched] * 3
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                    max_new_tokens=LM_NEW, m_active=modes[i])
+            for i, n in enumerate(rng.integers(5, 61, LM_BATCH))]
+    srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
+    leaves = []
+    cm.tree_map(leaves.append, srv.cache)
+    if any(t.device.type != dev.type for t in leaves) or srv.device.type != dev.type:
+        fail(f"LM serve: the server or its cache is not on {dev}")
+    launches = {k: 0 for k in TPU_KERNELS}
+
+    def counted(fn, want_passes: int, where: str):
+        ops.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if counts["binary_matmul"] != want_passes * per_pass or \
+                counts["binary_conv"] or counts["binary_dwconv"]:
+            fail(f"LM serve {where}: launches {counts}, want {want_passes} x {per_pass} "
+                 f"matmul launches")
+        for k, v in counts.items():
+            launches[k] += v
+
+    t0 = time.perf_counter()
+    for r in reqs:
+        counted(lambda: srv.admit(r) or fail("LM serve: admission refused"), 1, "admit")
+    rounds = 0
+    while any(s is not None for s in srv.slots):
+        before = srv.stats["decode_steps"]
+        ops.reset_launch_counts()
+        srv.step()
+        torch.cuda.synchronize()
+        groups = srv.stats["decode_steps"] - before
+        n = ops.launch_counts()["binary_matmul"]
+        if n != groups * per_pass:
+            fail(f"LM serve: a round of {groups} group steps launched the matmul {n} times, "
+                 f"want {groups} x {per_pass}")
+        launches["binary_matmul"] += n
+        rounds += 1
+    serve_s = time.perf_counter() - t0
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != LM_NEW or r.last_logits.shape != (cfg.vocab,) \
+                or not np.isfinite(r.last_logits).all() \
+                or not all(0 <= t < cfg.vocab for t in r.out_tokens):
+            fail(f"LM serve: request of {r.prompt.size} tokens ended with {r.out_tokens}")
+    print(f"phase 7: served {len(reqs)} requests (prompts {[r.prompt.size for r in reqs]}, "
+          f"m_active None/1/per-layer) in {rounds} rounds, {serve_s:.2f} s; stats "
+          f"{srv.stats}; configs {srv.cache_sizes()}; {per_pass} matmul launches per "
+          f"admission and per decode group step")
+
+    # a request of each mode served alone gives the stream it got in the mix
+    for r in reqs[:3]:
+        solo = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
+        again = Request(prompt=r.prompt.copy(), max_new_tokens=LM_NEW, m_active=r.m_active)
+        solo.admit(again)
+        solo.run_until_done()
+        same_stream(f"LM serve: m_active {r.m_active} alone vs in the mix", again, r)
+    # bulk admission == token-wise admission
+    streams = {}
+    for mode in ("bulk", "tokenwise"):
+        one = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN, prefill=mode,
+                     prefill_buckets=None)
+        streams[mode] = Request(prompt=reqs[0].prompt.copy(), max_new_tokens=4)
+        one.admit(streams[mode])
+        one.run_until_done()
+    same_stream("LM serve: bulk vs token-wise admission", streams["bulk"],
+                streams["tokenwise"])
+    print(f"phase 7: each mode served alone gave the tokens it got in the mix; bulk "
+          f"admission of {reqs[0].prompt.size} tokens gave token-wise admission's tokens "
+          f"{streams['bulk'].out_tokens} and logits (rtol 2e-5, atol 5e-5)")
+    return {"stats": srv.stats, "rounds": rounds, "serve_s": serve_s, "launches": launches,
+            "prompt_lens": [int(r.prompt.size) for r in reqs],
+            "out_tokens": [r.out_tokens for r in reqs]}
+
+
+def lm_card_vs_plain(cfg, params, dev) -> dict:
+    """Phase 7: the card against the plain versions, the same weights cut to
+    2 layers at full width: prefill of 16 tokens and 2 decode steps, the
+    port's functions on the card and on a CPU copy of the params."""
+    cfg2 = cfg.replace(n_layers=2)
+    card = {"embed": params["embed"], "final_norm": params["final_norm"],
+            "layers": cm.tree_map(lambda t: t[:2], params["layers"])}
+    host = cm.tree_map(lambda t: t.cpu(), card)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 16)).astype(np.int64))
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1, 1)).astype(np.int64))
+    outs = {}
+    for where, p in (("card", card), ("plain", host)):
+        d = p["embed"]["table"].device
+        logits, cache = api.prefill(cfg2, p, toks.to(d), max_len=32)
+        got = [logits.cpu()]
+        for i in range(2):
+            pos = torch.full((1,), 16 + i, dtype=torch.int32, device=d)
+            lg, cache = api.decode_step(cfg2, p, {"tokens": steps[i].to(d), "pos": pos,
+                                                  "cache": cache})
+            got.append(lg.cpu())
+        leaves = []
+        cm.tree_map(lambda t: leaves.append(t.cpu()), cache)
+        outs[where] = (got, leaves)
+    worst = 0.0
+    for what, a, b in [("logits", x, y) for x, y in zip(outs["card"][0], outs["plain"][0])] \
+            + [("cache", x, y) for x, y in zip(outs["card"][1], outs["plain"][1])]:
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / max(scale, 1e-30))
+        if not torch.isfinite(a).all() or scale == 0.0 or \
+                not torch.allclose(a, b, rtol=1e-4, atol=1e-4 * scale):
+            fail(f"LM card vs plain ({what}): max |d| {err:.3g}, max |plain| {scale:.3g}")
+    print(f"phase 7: 2 layers at full width, prefill of 16 tokens + 2 decode steps: card "
+          f"within rtol 1e-4 / atol 1e-4·max|x| of the plain versions on the CPU (logits and "
+          f"every cache leaf); worst max|d|/max|x| {worst:.3g}")
+    return {"worst_rel_err": worst}
+
+
+def lm_timing(cfg, params, gen: torch.Generator, dev, out_dir: Path) -> dict:
+    """Phase 7 timings: admission of a 64-token prompt, a decode step at 8
+    active slots, a profiler window of 3 decode steps, and the LM linears
+    one by one (``time_lm_linears``)."""
+    rng = np.random.default_rng(2)
+    srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
+    prompt = rng.integers(0, cfg.vocab, LM_BUCKET).astype(np.int32)
+    admit_ms = []
+    for i in range(6):
+        srv.slots = [None] * LM_BATCH
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.admit(Request(prompt=prompt.copy(), max_new_tokens=LM_NEW))
+        torch.cuda.synchronize()
+        if i:
+            admit_ms.append((time.perf_counter() - t0) * 1e3)
+    srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
+    for _ in range(LM_BATCH):
+        srv.admit(Request(prompt=rng.integers(0, cfg.vocab, 8).astype(np.int32),
+                          max_new_tokens=LM_LEN - 16))
+    host_ms, dev_ms = [], []
+    for i in range(12):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        srv.step()
+        t1 = time.perf_counter()
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            host_ms.append((t1 - t0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+    picks = ops.plan_pick_count()
+    srv.step()
+    picks = ops.plan_pick_count() - picks
+    step = {"admit_64_ms": statistics.median(admit_ms), "admit_64_all_ms": admit_ms,
+            "decode_step_host_ms": statistics.median(host_ms),
+            "decode_step_events_ms": statistics.median(dev_ms),
+            "decode_steps_host_ms": host_ms, "plan_picks_per_decode_step": picks}
+    step["tokens_per_s"] = LM_BATCH / step["decode_step_host_ms"] * 1e3
+    print(f"phase 7: admission of a {LM_BUCKET}-token prompt (prefill at bucket "
+          f"{srv._padded_len(LM_BUCKET - 1)} + scatter) median {step['admit_64_ms']:.3f} ms; "
+          f"decode step at {LM_BATCH} active slots median {step['decode_step_host_ms']:.3f} ms "
+          f"host clock, {step['decode_step_events_ms']:.3f} ms CUDA events "
+          f"({step['tokens_per_s']:.1f} tokens/s); {picks} plan picks per step")
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+    path = out_dir / "trace_gemma.json"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=3, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
+        for _ in range(4):
+            srv.step()
+            torch.cuda.synchronize()
+            prof.step()
+    split = device_split(json.loads(path.read_text())["traceEvents"])
+    mm_us = sum(us for n, us in split["device_us_by_name"].items() if "binary_matmul" in n)
+    head_us = sum(e.device_time_total for e in prof.key_averages(group_by_input_shape=True)
+                  if e.key == "aten::mm" and any(cfg.vocab in (s or []) for s in e.input_shapes))
+    if mm_us == 0 or head_us == 0:
+        fail(f"LM profile: binary_matmul {mm_us} us, LM head {head_us} us")
+    split.update(binary_matmul_us_per_step=mm_us / 3, lm_head_us_per_step=head_us / 3)
+    print(f"phase 7: profiler over 3 decode steps: window {split['window_us'] / 3e3:.4f} ms "
+          f"per step, device busy {split['busy_us'] / 3e3:.4f} ms, idle share "
+          f"{split['idle_share']:.4f}; binary_matmul {mm_us / 3e3:.4f} ms and LM head "
+          f"{head_us / 3e3:.4f} ms of device time per step; trace {path.relative_to(ROOT)}")
+    for name, us in list(split["device_us_by_name"].items())[:10]:
+        print(f"  {us / 3e3:.5f} ms per step  {name[:110]}")
+    return {**step, "profile": split, "linears": time_lm_linears(params, gen, dev)}
+
+
+def time_lm_linears(params, gen: torch.Generator, dev) -> list:
+    """Per LM linear shape at T = 8 (decode) and 64 (the prefill bucket),
+    m_active 2: the kernel, its plain version and ``x @ W_hat`` (CUDA graphs)
+    and the bound."""
+    rows = []
+    for name in LM_LINEARS:
+        p = lm_weight(params, name)
+        K, N = p["B_packed"].shape[1] * 8, p["B_packed"].shape[2]
+        W_hat = bz.reconstruct(bz.BinApprox(bz.unpack_bits(p["B_packed"], K), p["alpha"], K))
+        for T in (LM_BATCH, LM_BUCKET):
+            x = torch.randn(T, K, generator=gen).to(dev)
+            kw = dict(K=K, group_size=K)
+            ms = graph_ms(lambda: ops.binary_matmul(x, p["B_packed"], p["alpha"], **kw))
+            plain_ms = graph_ms(lambda: kref.binary_matmul_ref(x, p["B_packed"], p["alpha"],
+                                                               **kw), reps=3)
+            lib_ms = graph_ms(lambda: x @ W_hat)
+            nbytes = 4 * T * K + p["B_packed"].numel() + 4 * p["alpha"].numel() + 4 * T * N
+            flops = 2 * T * K * N
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+            rows.append({"shape": name, "T": T, "K": K, "N": N,
+                         "plan": list(ops.pick_matmul_plan(T, N)), "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                         "bytes": nbytes, "flops": flops})
+            print(f"  LM {name} T={T} plan {tuple(rows[-1]['plan'])}: kernel {ms:.5f} ms, "
+                  f"plain {plain_ms:.5f} ms, x @ W_hat {lib_ms:.5f} ms, bound "
+                  f"{rows[-1]['bound_ms']:.5f} ms ({rows[-1]['bound_by']})")
+    return rows
+
+
+def lm_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
+    """Phase 7: gemma-2b on the card through the port's LM stack and Server."""
+    cfg = lm_config()
+    t0 = time.time()
+    params, build = build_lm(cfg, dev)
+    max_err = check_lm_kernels(params, gen, dev)
+    served = serve_lm(cfg, params, dev)
+    plain = lm_card_vs_plain(cfg, params, dev)
+    timing = lm_timing(cfg, params, gen, dev, out_dir)
+    print(f"phase 7: {time.time() - t0:.1f} s")
+    return {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype, "M": 2},
+            "build": build, "max_abs_err": max_err, "serve": served,
+            "card_vs_plain": plain, "timing": timing}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -621,6 +983,7 @@ def main() -> int:
                 for arch, program in programs.items()}
 
     serve = serve_phase(nets["mobilenet"][0], quant, gen, dev, out_dir)
+    lm = lm_phase(gen, dev, out_dir)
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -629,19 +992,23 @@ def main() -> int:
         t_ops = tot["flops"] / FP32_FLOPS * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max_err[name],
+            "launches": launches[name] + lm["serve"]["launches"][name],
+            "max_abs_err": max(max_err[name], lm["max_abs_err"] if name == "binary_matmul"
+                               else 0.0),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": tot["library_ms"], "instr_ms": tot["instr_ms"],
-            "serve_launches": serve["launches"][name]})
+            "cnn_launches": launches[name], "serve_launches": serve["launches"][name],
+            "lm_launches": lm["serve"]["launches"][name]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
          "kernels": kernels, "layers": rows, "forward": forward, "profiles": profiles,
-         "serve": serve},
+         "serve": serve, "lm": lm},
         indent=1))
     print("timings: ms, plain_ms, library_ms and bound_ms sum one forward of CNN-A "
           "(batch 64) and one of MobileNetV1-224 (batch 16); launches counts phases 2 "
-          "and 3 (three calls of each network)")
+          "and 3 (three calls of each network) and phase 7's serving of gemma-2b; the "
+          "LM shapes' times are under \"lm\" in chiprun_out/chip_smoke.json")
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

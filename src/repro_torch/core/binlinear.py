@@ -1,12 +1,23 @@
-"""Quantization config and offline packing of a binary linear layer.
+"""Quantizable linear layer (port of ``repro/core/binlinear.py``).
 
-Port of the deployment half of ``repro/core/binlinear.py``: ``QuantConfig``
-limited to the fields the compile-once path reads, and ``binarize_params``
-(fp ``{w, b}`` -> packed ``{B_packed, alpha, b}``).
+Two execution modes of ``apply_linear``, keyed on the params' form:
+
+  * packed trees (``B_packed`` present) take the binary path,
+    ``y = sum_{m<m_active} alpha_m (x @ B_m)`` (paper Eq. 8), through
+    ``kernels/ops.binary_matmul``, which launches the CUDA kernel for a
+    tensor on the card and runs the plain version for one on the CPU;
+  * fp trees run ``x @ W`` (``dense``).  ``fake_quant`` (retraining with a
+    straight-through gradient) waits for the training slice, ROADMAP item 13.
+
+``m_active`` is the paper's runtime accuracy<->throughput switch (§IV-D);
+``m_schedule`` gives it per decoder layer (``models/common.layer_quant_cfg``
+resolves it).  The JAX package's ``use_pallas`` / ``interpret`` /
+``fuse_conv`` select TPU routes; the port routes by device instead.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -22,9 +33,24 @@ class QuantConfig:
     K_iters: int = 8                # Algorithm 2 refinement budget
     group_size: int | None = None   # None = per-output-channel (paper)
     m_active: int | None = None     # runtime levels used (<= M); None = all
+    m_schedule: tuple[int, ...] | None = None  # per-layer §IV-D schedule:
+                                    # entry i is m_active for decoder layer i
 
     def replace(self, **kw: Any) -> "QuantConfig":
         return dataclasses.replace(self, **kw)
+
+
+DENSE = QuantConfig(mode="dense")
+
+
+def init_linear(gen: torch.Generator, in_dim: int, out_dim: int,
+                dtype=torch.float32, scale: float | None = None, *,
+                device=None) -> dict:
+    """LeCun-normal weight ``{'w': [K, N]}``, drawn from ``gen`` on the
+    generator's own device, then moved to ``device`` (default: that one)."""
+    s = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    w = torch.randn((in_dim, out_dim), generator=gen, device=gen.device) * s
+    return {"w": w.to(device=device or gen.device, dtype=dtype)}
 
 
 def binarize_params(params: dict, qc: QuantConfig) -> dict:
@@ -38,3 +64,28 @@ def binarize_params(params: dict, qc: QuantConfig) -> dict:
     if "b" in params:
         out["b"] = params["b"]
     return out
+
+
+def apply_linear(params: dict, x: torch.Tensor, qc: QuantConfig = DENSE) -> torch.Tensor:
+    """y = quantized-linear(x): x [..., K] -> [..., N] in x's dtype."""
+    if "B_packed" in params:
+        y = _apply_binary(params, x, qc)
+    elif qc.mode == "fake_quant":
+        raise NotImplementedError(
+            "fake_quant (retraining) waits for the training slice, ROADMAP item 13")
+    else:
+        y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+def _apply_binary(params: dict, x: torch.Tensor, qc: QuantConfig) -> torch.Tensor:
+    """Deployment path over packed weights (paper Eq. 8); K and group_size
+    are re-derived from shapes (K = x's trailing dim, group_size = K // G)."""
+    from repro_torch.kernels import ops as kops   # ops -> binconv -> this module
+
+    K = x.shape[-1]
+    return kops.binary_matmul(x, params["B_packed"], params["alpha"], K=K,
+                              group_size=K // params["alpha"].shape[1],
+                              m_active=qc.m_active or params["alpha"].shape[0])

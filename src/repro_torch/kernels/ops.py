@@ -117,7 +117,8 @@ def _on_card(x: torch.Tensor) -> bool:
 def binary_matmul(x: torch.Tensor, B_packed: torch.Tensor, alpha: torch.Tensor, *,
                   K: int, group_size: int, m_active: int | None = None,
                   plan: tuple[int, int] | None = None) -> torch.Tensor:
-    """y[..., N] = sum_{m<m_active} alpha_m ⊙ (x[..., K] @ B_m), fp32."""
+    """y[..., N] = sum_{m<m_active} alpha_m ⊙ (x[..., K] @ B_m), summed in fp32
+    and returned in x's dtype (as the JAX wrapper does)."""
     M, _, N = B_packed.shape
     m = min(m_active or M, M)
     lead = x.shape[:-1]
@@ -129,7 +130,7 @@ def binary_matmul(x: torch.Tensor, B_packed: torch.Tensor, alpha: torch.Tensor, 
         x2 = x2.to(torch.float32).contiguous()
         y = bmk.launch(x2, B_packed, alpha, K=K, group_size=group_size, m_active=m,
                        plan=plan or pick_matmul_plan(x2.shape[0], N))
-    return y.reshape(*lead, N)
+    return y.reshape(*lead, N).to(x.dtype)
 
 
 def binary_conv2d(x: torch.Tensor, B_tap_packed: torch.Tensor, alpha: torch.Tensor,

@@ -275,3 +275,60 @@ def test_golden_checkpoint_and_service_on_the_card(card, tmp_path):
     assert [r.status for r in done] == ["done"] * 5 and svc.last_batch.device.type == "cuda"
     want = deploy.execute(program, svc.last_batch, svc.last_schedule).cpu()
     assert all(torch.equal(r.logits, want[r.batch_index]) for r in done)
+
+
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (2048, 16384), (16384, 2048)])
+@pytest.mark.parametrize("T", [1, 8])
+def test_binary_matmul_kernel_at_the_lm_shapes(card, T, K, N):
+    """gemma-2b's linears (q/o, k/v under MQA, gate/up, down) at decode's
+    row counts, m_active 1 and 2; K = 16384 cuts into chunks of 2048."""
+    gen = torch.Generator().manual_seed(T + K + N)
+    x = torch.randn(T, K, generator=gen).to(card)
+    packed = bz.pack_bits(_signs(gen, (2, K, N))).to(card)
+    alpha = (_alpha(gen, (2, 1, N)) / K ** 0.5).to(card)
+    for m in (1, 2):
+        want = ref.binary_matmul_ref(x, packed, alpha, K=K, group_size=K, m_active=m)
+        outs = [ops.binary_matmul(x, packed, alpha, K=K, group_size=K, m_active=m, plan=plan)
+                for plan in (None, (2, 64), (8, 32))]
+        torch.cuda.synchronize()
+        torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
+        assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def test_lm_server_on_the_card_matches_the_cpu(card):
+    """A reduced gemma served on the card and on the CPU (plain versions):
+    the same tokens, logits within rtol 2e-5 / atol 5e-5 (the JAX serving
+    tests' tolerance), 2 layers x 7 matmul launches per decode group step."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import api, common as cm
+
+    qc = QuantConfig(mode="binary", M=2, K_iters=2)
+    cfg = reduced(get_config("gemma_2b")).replace(dtype="float32", quant=qc)
+    host = api.binarize_model_params(
+        cfg, api.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    params = {"cpu": host, "cuda": cm.tree_map(lambda t: t.to(card), host)}
+    rng = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).numpy().astype("int32")
+               for n in (5, 9, 3, 12)]
+    served = {}
+    for where, p in params.items():
+        srv = Server(cfg, p, max_batch=3, max_len=32)
+        reqs = [Request(prompt=pr, max_new_tokens=5, m_active=m)
+                for pr, m in zip(prompts, (None, 1, (1, 2), None))]
+        pending = list(reqs)
+        while pending or any(s is not None for s in srv.slots):
+            while pending and srv.admit(pending[0]):
+                pending.pop(0)
+            before, steps = ops.launch_counts()["binary_matmul"], srv.stats["decode_steps"]
+            srv.step()
+            if where == "cuda":
+                torch.cuda.synchronize()
+                assert ops.launch_counts()["binary_matmul"] - before == \
+                    14 * (srv.stats["decode_steps"] - steps)
+        served[where] = (reqs, srv.stats)
+    assert served["cuda"][1] == served["cpu"][1]
+    for a, b in zip(served["cuda"][0], served["cpu"][0]):
+        assert a.out_tokens == b.out_tokens
+        torch.testing.assert_close(torch.from_numpy(a.last_logits),
+                                   torch.from_numpy(b.last_logits), rtol=2e-5, atol=5e-5)

@@ -195,7 +195,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys; import repro_torch, repro_torch.deploy, repro_torch.models.cnn, "
             "repro_torch.convert, repro_torch.kernels.ops, repro_torch.checkpoint.manager, "
             "repro_torch.deploy.selftest, repro_torch.analysis.verify, "
-            "repro_torch.serve_cnn, repro_torch.testing.faults; "
+            "repro_torch.serve_cnn, repro_torch.testing.faults, repro_torch.configs.base, "
+            "repro_torch.models.api, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.'))"
             " or m == 'repro']; print(bad); sys.exit(1 if bad else 0)")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}

@@ -79,6 +79,34 @@ def test_binary_matmul_plain_matches_oracle_and_pallas(T, K, N, M, group_size, m
                                    K=K, group_size=gs, m_active=m_active, interpret=True))
 
 
+@pytest.mark.parametrize("m_active", [1, 2])
+def test_binary_matmul_returns_the_input_dtype(m_active):
+    """A bf16 x comes back bf16, summed in fp32 on both sides: the port's
+    wrapper against the JAX package's binary linear (ref path, which casts
+    back to x's dtype).  Tolerance: bf16's own (rtol 1.6e-2, atol 1e-5),
+    one rounding of the same fp32 sum to bf16 on each side."""
+    from repro.core import binlinear as jbl
+
+    rng = np.random.default_rng(7 + m_active)
+    T, K, N = 6, 40, 24
+    x = rng.standard_normal((2, T, K)).astype(np.float32)
+    packed = _flat_packed(_signs(rng, (2, K, N)))
+    alpha = _alpha(rng, (2, 1, N))
+    jx = jnp.asarray(x, dtype=jnp.bfloat16)
+    want = jbl.apply_linear({"B_packed": jnp.asarray(packed), "alpha": jnp.asarray(alpha)},
+                            jx, jbl.QuantConfig(mode="binary", m_active=m_active))
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    got = tops.binary_matmul(tx, torch.from_numpy(packed), torch.from_numpy(alpha), K=K,
+                             group_size=K, m_active=m_active)
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    assert got.shape == (2, T, N)
+    torch.testing.assert_close(got.float(), torch.from_numpy(np.asarray(want, np.float32)),
+                               rtol=1.6e-2, atol=1e-5)
+    f32 = tops.binary_matmul(tx.float(), torch.from_numpy(packed), torch.from_numpy(alpha),
+                             K=K, group_size=K, m_active=m_active)
+    assert f32.dtype == torch.float32
+
+
 CONV_CASES = [
     # B, H, W, C, D, kh, kw, stride, padding, pool, M, m_active, relu, group_size
     (2, 12, 12, 3, 5, 7, 7, 1, "VALID", 2, 2, None, True, None),   # conv1-like
