@@ -46,8 +46,9 @@ source, all at once) and runs, each phase failing loudly:
      x 256, MQA, d_ff 16384, vocab 256000, GeGLU, tied embeddings), fp32,
      M=2, its weights drawn on the card and binarized there layer by layer.
      The matmul kernel against its plain version at every LM linear shape
-     (T = 1, 8 and the prefill bucket 64; m_active 1 and 2; the second plan
-     bit-identical); ``Server(max_batch=8, max_len=256)`` serving 8 requests
+     (T = 1 and every row count the phase gives the kernel: the decode
+     batch 8, each prefill bucket, 16 and 64; m_active 1 and 2; the second
+     plan bit-identical); ``Server(max_batch=8, max_len=256)`` serving 8 requests
      (prompts of 5-60 tokens, 16 new tokens, m_active None / 1 / a per-layer
      schedule) with 18 x 7 matmul launches per decode group step, a mixed
      request equal to the same request served alone, bulk admission equal
@@ -631,15 +632,37 @@ def lm_weight(params, name: str, layer: int = 0) -> dict:
     return cm.tree_index(params["layers"][a][w], layer)
 
 
-def check_lm_kernels(params, gen: torch.Generator, dev) -> float:
+def lm_requests(cfg) -> list[Request]:
+    """The main path's requests: prompts of 5-60 tokens from a seeded
+    generator, m_active None, 1 and a per-layer schedule in turn."""
+    rng = np.random.default_rng(0)
+    sched = tuple(1 + (i % 2) for i in range(cfg.n_layers))
+    modes = [None, 1, sched] * 3
+    return [Request(prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                    max_new_tokens=LM_NEW, m_active=modes[i])
+            for i, n in enumerate(rng.integers(5, 61, LM_BATCH))]
+
+
+def lm_rows(cfg, params) -> list[int]:
+    """Every row count T that phase 7 gives the matmul kernel: the decode
+    batch, each request's prefill bucket, the first prompt unbucketed, the
+    2-layer check's 16 tokens and the timed 64-token bucket, and T = 1."""
+    srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
+    reqs = lm_requests(cfg)
+    return sorted({1, LM_BATCH, 16, LM_BUCKET, reqs[0].prompt.size - 1,
+                   *(srv._padded_len(r.prompt.size - 1) for r in reqs)})
+
+
+def check_lm_kernels(cfg, params, gen: torch.Generator, dev) -> float:
     """Phase 7: the matmul kernel against its plain version at every LM
-    linear shape, T = 1, 8 and 64, m_active 1 and 2; the second plan must
-    give the same bits."""
+    linear shape and every row count of ``lm_rows``, m_active 1 and 2; the
+    second plan must give the same bits."""
     max_err, checks = 0.0, 0
+    rows = lm_rows(cfg, params)
     for name in LM_LINEARS:
         p = lm_weight(params, name)
         K, N = p["B_packed"].shape[1] * 8, p["B_packed"].shape[2]
-        for T in (1, LM_BATCH, LM_BUCKET):
+        for T in rows:
             if ops.pick_matmul_plan(T, N) == ALT_PLAN["linear"]:
                 fail(f"LM {name} T={T}: the picked plan is the second plan")
             x = torch.randn(T, K, generator=gen).to(dev)
@@ -657,8 +680,8 @@ def check_lm_kernels(params, gen: torch.Generator, dev) -> float:
                     fail(f"LM {name} T={T} m={m}: plans differ")
                 checks += 1
     torch.cuda.synchronize()
-    print(f"phase 7: {checks} LM-shape kernel-vs-plain checks passed (rtol {RTOL}, atol "
-          f"{ATOL}), second plan bit-identical; max |d| {max_err:.3g}")
+    print(f"phase 7: {checks} LM-shape kernel-vs-plain checks at T = {rows} passed (rtol "
+          f"{RTOL}, atol {ATOL}), second plan bit-identical; max |d| {max_err:.3g}")
     return max_err
 
 
@@ -683,12 +706,7 @@ def serve_lm(cfg, params, dev) -> dict:
     and read just after; every decode group step and every bulk admission
     must launch the matmul kernel 18 x 7 times."""
     per_pass = cfg.n_layers * 7
-    rng = np.random.default_rng(0)
-    sched = tuple(1 + (i % 2) for i in range(cfg.n_layers))
-    modes = [None, 1, sched] * 3
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
-                    max_new_tokens=LM_NEW, m_active=modes[i])
-            for i, n in enumerate(rng.integers(5, 61, LM_BATCH))]
+    reqs = lm_requests(cfg)
     srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
     leaves = []
     cm.tree_map(leaves.append, srv.cache)
@@ -907,7 +925,7 @@ def lm_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
     cfg = lm_config()
     t0 = time.time()
     params, build = build_lm(cfg, dev)
-    max_err = check_lm_kernels(params, gen, dev)
+    max_err = check_lm_kernels(cfg, params, gen, dev)
     served = serve_lm(cfg, params, dev)
     plain = lm_card_vs_plain(cfg, params, dev)
     timing = lm_timing(cfg, params, gen, dev, out_dir)

@@ -2,16 +2,18 @@
 
 Every ported architecture has one ``configs/<id>.py`` exporting ``CONFIG``
 (the JAX package's file with its import pointed here); ``get_config(name)``
-resolves it and ``reduced(cfg)`` shrinks it for CPU tests.  The fields are
-the JAX package's, so a config crosses between the two packages field by
-field.  The dry run's shape cells and input specs (``SHAPES``,
+resolves it and ``reduced(cfg)`` shrinks it for CPU tests.  ``ArchConfig``
+holds the JAX package's fields that the dense family reads, under the same
+names and defaults; the MoE, MLA, SSM, hybrid, enc-dec and VLM fields come
+with the slices that port those families (ROADMAP items 12b-12e), and the
+JAX package's sharding and compilation knobs with ``distributed/`` and
+training.  The dry run's shape cells and input specs (``SHAPES``,
 ``input_specs``, ``cells``) are not ported yet (ROADMAP item 14).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any
 
 import torch
 
@@ -39,46 +41,10 @@ class ArchConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     logit_softcap: float | None = None
-    # --- MoE ---
-    n_experts: int = 0
-    top_k: int = 0
-    n_shared_experts: int = 0
-    d_ff_expert: int | None = None
-    n_dense_layers: int = 0          # leading dense layers (DeepSeek-V3: 3)
-    capacity_factor: float = 1.25
-    # --- MLA (DeepSeek) ---
-    use_mla: bool = False
-    q_lora_rank: int = 0             # 0 = no q compression
-    kv_lora_rank: int = 512
-    qk_nope_dim: int = 128
-    qk_rope_dim: int = 64
-    v_head_dim: int = 128
-    # --- MTP (DeepSeek) ---
-    mtp_depth: int = 0
-    # --- SSM (Mamba2 / SSD) ---
-    ssm_state: int = 0
-    ssm_expand: int = 2
-    ssm_head_dim: int = 64
-    ssm_ngroups: int = 1
-    ssm_conv_width: int = 4
-    ssm_chunk: int = 256
-    # --- hybrid (Zamba2) ---
-    hybrid_attn_every: int = 6       # one shared attn block per N ssm blocks
-    # --- enc-dec (Whisper) ---
-    n_encoder_layers: int = 0
-    encoder_len: int = 1500          # precomputed frame embeddings (stub)
-    # --- VLM (InternVL2) ---
-    n_image_tokens: int = 0          # precomputed patch embeddings (stub)
     # --- numerics / quant ---
     dtype: str = "bfloat16"
     quant: QuantConfig = QuantConfig(mode="dense")
-    remat: bool = True
-    scan_layers: bool = True
-    # --- perf knobs of the JAX package, kept so configs cross field by field ---
     attn_chunk: int | None = None    # query-chunked attention (flash-style)
-    onehot_loss: bool = False
-    serve_fsdp: bool = True
-    kv_seq_shard: bool = False
 
     @property
     def resolved_head_dim(self) -> int:
@@ -88,18 +54,8 @@ class ArchConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
-    @property
-    def sub_quadratic(self) -> bool:
-        """Can this arch run long_500k decode? (SSM/hybrid/SWA)."""
-        return self.family in ("ssm", "hybrid") or self.sliding_window is not None
-
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
-
-    def param_count(self, active_only: bool = False) -> int:
-        from repro_torch.models import api
-
-        return api.count_params(self, active_only=active_only)
 
 
 def get_config(name: str) -> ArchConfig:
@@ -113,27 +69,9 @@ def get_config(name: str) -> ArchConfig:
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """Tiny same-family config for CPU tests (the JAX package's cuts)."""
-    kw: dict[str, Any] = dict(
+    return cfg.replace(
         n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads else 0,
         d_ff=128, vocab=512, head_dim=16,
         sliding_window=32 if cfg.sliding_window else None,
-        scan_layers=False, remat=False,
     )
-    if cfg.n_experts:
-        kw.update(n_experts=4, top_k=min(cfg.top_k, 2), d_ff_expert=64,
-                  n_dense_layers=min(cfg.n_dense_layers, 1))
-    if cfg.use_mla:
-        kw.update(q_lora_rank=32 if cfg.q_lora_rank else 0, kv_lora_rank=32,
-                  qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
-    if cfg.mtp_depth:
-        kw.update(mtp_depth=1)
-    if cfg.ssm_state:
-        kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16, n_layers=4)
-    if cfg.family == "hybrid":
-        kw.update(hybrid_attn_every=2, n_layers=4)
-    if cfg.n_encoder_layers:
-        kw.update(n_encoder_layers=2, encoder_len=24)
-    if cfg.n_image_tokens:
-        kw.update(n_image_tokens=8)
-    return cfg.replace(**kw)

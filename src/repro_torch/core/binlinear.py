@@ -22,6 +22,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import binarize as bz
 
 
@@ -45,12 +46,13 @@ DENSE = QuantConfig(mode="dense")
 
 def init_linear(gen: torch.Generator, in_dim: int, out_dim: int,
                 dtype=torch.float32, scale: float | None = None, *,
-                device=None) -> dict:
+                device="cuda") -> dict:
     """LeCun-normal weight ``{'w': [K, N]}``, drawn from ``gen`` on the
-    generator's own device, then moved to ``device`` (default: that one)."""
+    generator's own device, then moved to ``device`` (raises without a card
+    when that is CUDA)."""
     s = scale if scale is not None else 1.0 / math.sqrt(in_dim)
     w = torch.randn((in_dim, out_dim), generator=gen, device=gen.device) * s
-    return {"w": w.to(device=device or gen.device, dtype=dtype)}
+    return {"w": w.to(device=resolve_device(device), dtype=dtype)}
 
 
 def binarize_params(params: dict, qc: QuantConfig) -> dict:

@@ -8,7 +8,9 @@ per-decoder-layer schedule).  Each step groups the active slots by their
 normalized level count and runs one batched decode per group.  The rows a
 grouped decode writes for non-group slots are *transient*: they land at a
 position the owning slot has not attended past yet, and that slot's next
-real decode overwrites the row before attending to it.
+real decode overwrites the row before attending to it.  So the dense
+family needs no ``update_mask``; the JAX package's mask, which gates
+recurrent state, comes with the ssm/hybrid families (ROADMAP 12c/12d).
 
 Admission runs **bulk prefill**: one ``api.prefill`` forward over the
 prompt (B=1) emits the decode cache, which ``api.scatter_cache`` writes
@@ -235,10 +237,10 @@ class Server:
             for t in prompt[:-1]:
                 self._step_one(slot, int(t), req.m_active)
 
-    def _decode(self, m_active, tokens: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+    def _decode(self, m_active, tokens: np.ndarray) -> torch.Tensor:
         """One batched decode of every row; returns logits [B, V] on the device."""
         batch = {"tokens": self._to_device(tokens), "pos": self._to_device(self.pos),
-                 "cache": self.cache, "update_mask": self._to_device(mask)}
+                 "cache": self.cache}
         logits, self.cache = api.decode_step(
             self._specialised(self._decode_cfgs, m_active), self.params, batch)
         return logits[:, 0]
@@ -247,9 +249,7 @@ class Server:
         B = self.max_batch
         tokens = np.zeros((B, 1), np.int32)
         tokens[slot, 0] = token
-        mask = np.zeros((B,), bool)
-        mask[slot] = True
-        logits = self._decode(m_active, tokens, mask)
+        logits = self._decode(m_active, tokens)
         self.pos[slot] += 1
         self.stats["tokenwise_prefill_steps"] += 1
         return int(torch.argmax(logits[slot]))
@@ -269,12 +269,10 @@ class Server:
             groups.setdefault(self._norm_m(self.slots[i].m_active), []).append(i)
         for m_active, idxs in groups.items():
             tokens = np.zeros((B, 1), np.int32)
-            mask = np.zeros((B,), bool)
             for i in idxs:
                 r = self.slots[i]
                 tokens[i, 0] = (r.out_tokens[-1] if r.out_tokens else int(r.prompt[-1]))
-                mask[i] = True
-            logits = self._decode(m_active, tokens, mask)
+            logits = self._decode(m_active, tokens)
             self.stats["decode_steps"] += 1
             rows = torch.tensor(idxs, device=self.device)
             picked = logits[rows]

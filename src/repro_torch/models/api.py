@@ -72,9 +72,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda") -> d
 
 def decode_step(cfg: ArchConfig, params, batch):
     """batch: tokens [B,1], pos [B], cache -> (logits [B,1,V], cache), the
-    cache written in place.  ``batch["update_mask"]`` gates recurrent state
-    only (ssm/hybrid); positional KV caches need none (see
-    ``launch/serve.py``'s transient-row invariant), so it is ignored here."""
+    cache written in place.  The JAX package's ``batch["update_mask"]``
+    gates recurrent state only (ssm/hybrid, ROADMAP items 12c/12d);
+    positional KV caches need none (see ``launch/serve.py``'s transient-row
+    invariant), so the dense family takes no mask."""
     _dense_only(cfg)
     return tf_mod.lm_decode_step(params, cfg, batch["tokens"], batch["pos"], batch["cache"])
 
@@ -141,7 +142,7 @@ def binarize_model_params(cfg: ArchConfig, params, *, qc=None):
     return convert((), params)
 
 
-def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+def count_params(cfg: ArchConfig) -> int:
     """Parameter count of ``init_params(cfg)``, from the config alone."""
     _dense_only(cfg)
     d, hd = cfg.d_model, cfg.resolved_head_dim

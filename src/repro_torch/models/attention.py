@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common as cm
 
@@ -35,10 +36,10 @@ class CacheSpec(NamedTuple):
 # GQA / MQA
 # ---------------------------------------------------------------------------
 
-def init_attn(gen: torch.Generator, cfg: ArchConfig, *, device=None) -> dict:
+def init_attn(gen: torch.Generator, cfg: ArchConfig, *, device="cuda") -> dict:
     hd = cfg.resolved_head_dim
     dt = cfg.torch_dtype
-    dev = device or gen.device
+    dev = resolve_device(device)
 
     def lin(k, n, bias=False):
         return cm.init_linear(gen, k, n, dt, bias=bias, device=dev)
@@ -137,14 +138,15 @@ def attn_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     return spec
 
 
-def init_from_specs(specs, device=None):
+def init_from_specs(specs, device="cuda"):
     """Zeros for float leaves, -1 for int32 ones (empty ring slots)."""
+    dev = resolve_device(device)
     return cm.tree_map(
         lambda s: torch.full(s.shape, -1 if s.dtype == torch.int32 else 0,
-                             dtype=s.dtype, device=device), specs)
+                             dtype=s.dtype, device=dev), specs)
 
 
-def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> dict:
+def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict:
     return init_from_specs(attn_cache_specs(cfg, batch, max_len), device)
 
 

@@ -10,12 +10,15 @@ The JAX package's mesh constraints (``set_axis_rules``, ``shard``) wait for
 
 Weights are drawn from a ``torch.Generator`` on the generator's own device
 and then moved to ``device``: a CPU generator gives the same weights on
-every device, a CUDA one draws on the card.
+every device, a CUDA one draws on the card.  Every ``init_*`` places its
+tensors on ``device="cuda"`` unless told otherwise and raises when there is
+no card.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import binlinear as bl
 
 
@@ -44,8 +47,8 @@ def stack_trees(trees: list):
 # Norms
 # ---------------------------------------------------------------------------
 
-def init_rmsnorm(dim: int, dtype=torch.float32, device=None) -> dict:
-    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+def init_rmsnorm(dim: int, dtype=torch.float32, device="cuda") -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=resolve_device(device))}
 
 
 def rms_norm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -81,7 +84,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 
 def init_linear(gen: torch.Generator, in_dim: int, out_dim: int, dtype, *,
-                bias: bool = False, device=None) -> dict:
+                bias: bool = False, device="cuda") -> dict:
     p = bl.init_linear(gen, in_dim, out_dim, dtype=dtype, device=device)
     if bias:
         p["b"] = torch.zeros((out_dim,), dtype=dtype, device=p["w"].device)
@@ -106,7 +109,8 @@ def layer_quant_cfg(cfg, idx: int):
     return cfg.replace(quant=cfg.quant.replace(m_active=int(m), m_schedule=None))
 
 
-def init_embedding(gen: torch.Generator, vocab: int, dim: int, dtype, device=None) -> dict:
+def init_embedding(gen: torch.Generator, vocab: int, dim: int, dtype,
+                   device="cuda") -> dict:
     return {"table": bl.init_linear(gen, vocab, dim, dtype, scale=0.02, device=device)["w"]}
 
 

@@ -4,14 +4,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common as cm
 
 
 def init_ffn(gen: torch.Generator, cfg: ArchConfig, d_ff: int | None = None, *,
-             device=None) -> dict:
+             device="cuda") -> dict:
     d_ff = d_ff or cfg.d_ff
     dt = cfg.torch_dtype
+    device = resolve_device(device)
     if cfg.activation in ("swiglu", "geglu"):
         return {
             "w_gate": cm.init_linear(gen, cfg.d_model, d_ff, dt, device=device),

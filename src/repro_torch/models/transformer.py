@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -18,9 +19,9 @@ from repro_torch.models import ffn as ffn_mod
 
 
 def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.n_experts or cfg.use_mla or cfg.n_dense_layers or cfg.mtp_depth:
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: MoE, MLA and MTP layers wait for ROADMAP item 12b")
+            f"{cfg.name}: family {cfg.family!r} waits for ROADMAP items 12b-12e")
 
 
 # ---------------------------------------------------------------------------
@@ -28,12 +29,12 @@ def _require_dense(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, *, kind: str = "dense",
-               device=None) -> dict:
+               device="cuda") -> dict:
     if kind != "dense":
         raise NotImplementedError(f"layer kind {kind!r} waits for ROADMAP item 12b")
     _require_dense(cfg)
     dt = cfg.torch_dtype
-    dev = device or gen.device
+    dev = resolve_device(device)
     return {
         "ln1": cm.init_rmsnorm(cfg.d_model, dt, device=dev),
         "ln2": cm.init_rmsnorm(cfg.d_model, dt, device=dev),
@@ -71,10 +72,10 @@ def layer_prefill(params, x, cfg: ArchConfig, *, positions, mask, max_len):
 # Full LM
 # ---------------------------------------------------------------------------
 
-def init_lm(gen: torch.Generator, cfg: ArchConfig, *, device=None) -> dict:
+def init_lm(gen: torch.Generator, cfg: ArchConfig, *, device="cuda") -> dict:
     _require_dense(cfg)
     dt = cfg.torch_dtype
-    dev = device or gen.device
+    dev = resolve_device(device)
     p = {"embed": cm.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device=dev)}
     p["layers"] = cm.stack_trees([init_layer(gen, cfg, device=dev)
                                   for _ in range(cfg.n_layers)])
@@ -129,7 +130,7 @@ def lm_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
         lambda s: attn.CacheSpec((cfg.n_layers, *s.shape), s.dtype), one)}
 
 
-def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> dict:
+def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict:
     return attn.init_from_specs(lm_cache_specs(cfg, batch, max_len), device)
 
 

@@ -29,7 +29,10 @@ from repro_torch.configs import base as tcb
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import binlinear as tbl
 from repro_torch.models import api as tapi
+from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcm
+from repro_torch.models import ffn as tffn
+from repro_torch.models import transformer as ttf
 
 ARCHS = ("gemma_2b", "qwen3_14b", "h2o_danube_1_8b")
 JQC = jbl.QuantConfig(mode="binary", M=2, K_iters=2)
@@ -76,19 +79,24 @@ def _close(got: torch.Tensor, want, rtol=RTOL, atol=ATOL):
 
 @pytest.mark.parametrize("name", tcb.ARCH_IDS)
 def test_configs_match_the_reference(name):
+    """Every field the port's ArchConfig holds has the reference's value,
+    at full size and reduced; the defaults agree too."""
+    names = [f.name for f in dataclasses.fields(tcb.ArchConfig) if f.name != "quant"]
+    jfields = {f.name: f for f in dataclasses.fields(jcb.ArchConfig)}
+    for f in dataclasses.fields(tcb.ArchConfig):
+        if f.name != "quant" and f.default is not dataclasses.MISSING:
+            assert jfields[f.name].default == f.default, f.name
+
     def fields(c):
-        d = dataclasses.asdict(c)
-        d.pop("quant")
-        return d
+        return {n: getattr(c, n) for n in names}
 
     jc, tc = jcb.get_config(name), tcb.get_config(name)
     assert fields(tc) == fields(jc)
     assert fields(tcb.reduced(tc)) == fields(jcb.reduced(jc))
     assert tc.resolved_head_dim == jc.resolved_head_dim
-    assert tc.sub_quadratic == jc.sub_quadratic
     assert tc.torch_dtype == torch.bfloat16 and tc.replace(dtype="float32").torch_dtype \
         == torch.float32
-    assert tc.param_count() == japi.count_params(jc)
+    assert tapi.count_params(tc) == japi.count_params(jc)
 
 
 def test_get_config_refuses_what_is_not_ported():
@@ -303,10 +311,22 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the entry points run on it")
     _, tc = _cfgs("gemma_2b")
-    with pytest.raises(RuntimeError, match="cuda"):
-        tapi.init_params(tc, torch.Generator().manual_seed(0))
-    with pytest.raises(RuntimeError, match="cuda"):
-        tapi.init_cache(tc, 1, 8)
+    gen = torch.Generator().manual_seed(0)
+    for call in (lambda: tapi.init_params(tc, gen),
+                 lambda: tapi.init_cache(tc, 1, 8),
+                 lambda: ttf.init_lm(gen, tc),
+                 lambda: ttf.init_layer(gen, tc),
+                 lambda: ttf.init_lm_cache(tc, 1, 8),
+                 lambda: tattn.init_attn(gen, tc),
+                 lambda: tattn.init_attn_cache(tc, 1, 8),
+                 lambda: tattn.init_from_specs(tattn.attn_cache_specs(tc, 1, 8)),
+                 lambda: tffn.init_ffn(gen, tc),
+                 lambda: tcm.init_linear(gen, 8, 8, torch.float32),
+                 lambda: tcm.init_embedding(gen, 8, 8, torch.float32),
+                 lambda: tcm.init_rmsnorm(8),
+                 lambda: tbl.init_linear(gen, 8, 8)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
