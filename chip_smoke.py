@@ -58,7 +58,24 @@ source, all at once) and runs, each phase failing loudly:
      (CUDA events and host clock), a profiler window of 3 decode steps
      (``chiprun_out/trace_gemma.json``: kernels by name, idle share, the
      matmul kernel against the LM head's product), and per LM linear shape
-     the kernel, its plain version, ``x @ W_hat`` and the bound.
+     the kernel, its plain version, ``x @ W_hat`` and the bound;
+  8. training, after phase 7's model is freed: (a) the paper's Table II
+     pipeline on CNN-A (``tools/torch_train_cnn_a.py``: 300 fp32 AdamW steps
+     at 1e-3, Algorithm 2 with K_iters 25, 150 STE steps at 1e-4, batch 64,
+     512 eval images), then ``deploy.execute`` of the retrained weights on
+     ``binary_conv`` and ``binary_matmul``: both losses fall (last 20 steps
+     against the first 20), execute's logits within rtol 1e-4 / atol
+     1e-4·max|logit| of the fake-quant forward, the deployed accuracy within
+     0.02 of the retrained one, 2 + 3 launches; (b) gemma-2b at full width
+     and depth in bf16 with remat, fake-quant M=2, K_iters 8, three
+     ``build_train_step`` steps at 8 x 64 tokens (1 warm, 2 timed): losses
+     finite, every leaf's moments moved, every weight leaf changed (a norm
+     scale at 1.0 does not move in bf16 at this warmup's lr); Algorithm 2
+     timed alone over the 126 linears, and the peak memory; (c) ``Trainer``
+     at reduced(gemma_2b), fp32, deterministic algorithms: a run killed at
+     step 5 and resumed ends ``torch.equal`` to the uninterrupted one, one
+     injected non-finite loss is skipped and counted (checkpoints in
+     ``chiprun_out/train_ckpt/``).
 
 Weights are random, drawn from a seeded generator.  The logits of phases 2
 and 3 are compared with rtol 1e-4 and atol 1e-4·max|logit| (a relative
@@ -66,17 +83,22 @@ floor: the reference's random MobileNet init shrinks activations to ~1e-13
 by the head, and 28 layers of fp32 sums run in another order on each side).
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` counts the main
-paths of phases 2, 3 and 7, ``cnn_launches`` phases 2-3, ``serve_launches``
-phase 6 and ``lm_launches`` phase 7's serving), nvidia-smi's line, and
-last ``{"ok": true, "device": {...}}``; per-instruction numbers go to
-``chiprun_out/chip_smoke.json``, phase 7's under ``"lm"``.  Exits non-zero, printing no result,
+paths of phases 2, 3, 7 and 8a, ``cnn_launches`` phases 2-3,
+``serve_launches`` phase 6, ``lm_launches`` phase 7's serving and
+``train_launches`` phase 8a's execute), nvidia-smi's line, and last
+``{"ok": true, "device": {...}}``; per-instruction numbers go to
+``chiprun_out/chip_smoke.json``, phase 7's under ``"lm"``, phase 8's under
+``"train"``.  Exits non-zero, printing no result,
 without a card or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -95,7 +117,11 @@ try:
     from repro_torch.core import binarize as bz
     from repro_torch.core.binconv import pad_nhwc
     from repro_torch.core.binlinear import QuantConfig
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import ref as kref
     from repro_torch.launch.serve import Request, Server
@@ -936,9 +962,243 @@ def lm_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
             "card_vs_plain": plain, "timing": timing}
 
 
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 3     # phase 8b: 1 warm step, 2 timed
+
+
+def last_vs_first(where: str, losses: list, n: int = 20) -> tuple[float, float]:
+    """Mean of the first and the last ``n`` losses; fails unless it fell."""
+    first, last = statistics.mean(losses[:n]), statistics.mean(losses[-n:])
+    if not last < first:
+        fail(f"{where}: mean loss of the last {n} steps {last:.4f} is not below that of "
+             f"the first {n}, {first:.4f}")
+    return first, last
+
+
+def train_cnn_a(dev) -> dict:
+    """Phase 8a: the paper's Table II pipeline on CNN-A at full width
+    (``tools/torch_train_cnn_a.py``): fp32 training, Algorithm 2, STE
+    retraining, then ``deploy.execute`` of the retrained network on the
+    ``binary_conv`` and ``binary_matmul`` kernels (counts reset just before
+    that call, read just after)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_train_cnn_a as table2_tool
+
+    t0 = time.time()
+    out = table2_tool.table2(steps=300, M=2, eval_n=512, batch=64, device=dev)
+    fp = last_vs_first("8a fp32 training", out["fp_losses"])
+    rt = last_vs_first("8a STE retraining", out["rt_losses"])
+    want, got = out["logits_fake_quant"], out["logits_deploy"]
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or not torch.allclose(got, want, rtol=1e-4,
+                                                                 atol=1e-4 * scale):
+        fail(f"8a: execute's logits vs the fake-quant forward max |d| {err:.3g} "
+             f"(max |logit| {scale:.3g})")
+    if abs(out["acc_deploy"] - out["acc_rt"]) > 0.02:
+        fail(f"8a: deployed accuracy {out['acc_deploy']:.4f} is not within 0.02 of the "
+             f"retrained fake-quant accuracy {out['acc_rt']:.4f}")
+    if out["launches"] != EXPECTED_LAUNCHES["cnn_a"]:
+        fail(f"8a: execute launched {out['launches']}, not {EXPECTED_LAUNCHES['cnn_a']}")
+    # Algorithm 2 alone over the five layers, as one fake-quant forward runs it
+    alg2 = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for spec in cnn.CNN_A_SPECS:
+            w = out["params_rt"][spec.name]["w"]
+            with torch.no_grad():
+                bz.reconstruct(bz.algorithm2(w.reshape(-1, w.shape[-1]), 2, K_iters=25))
+        torch.cuda.synchronize()
+        alg2.append(time.perf_counter() - t1)
+    res = {k: out[k] for k in ("acc_fp", "acc_bin", "acc_rt", "acc_deploy", "compression",
+                               "eq6", "fp_step_ms", "rt_step_ms", "compile_s", "launches")}
+    res.update(fp_loss_first_last=fp, rt_loss_first_last=rt, logits_max_abs_err=err,
+               max_abs_logit=scale, algorithm2_ms=1e3 * statistics.median(alg2),
+               seconds=time.time() - t0)
+    print(f"phase 8a: CNN-A Table II on the card: accuracy fp32 {out['acc_fp']:.4f}, "
+          f"binarized (Algorithm 2, M=2) {out['acc_bin']:.4f}, retrained {out['acc_rt']:.4f}, "
+          f"deployed {out['acc_deploy']:.4f}; compression {out['compression']:.2f}x; mean "
+          f"loss first/last 20 steps {fp[0]:.4f}/{fp[1]:.4f} (fp32), {rt[0]:.4f}/{rt[1]:.4f} "
+          f"(STE); median step {out['fp_step_ms']:.3f} ms fp32, {out['rt_step_ms']:.3f} ms "
+          f"fake-quant, of which Algorithm 2 alone {res['algorithm2_ms']:.3f} ms; execute vs "
+          f"fake-quant max |d| {err:.3g} (max |logit| {scale:.4g}); "
+          f"launches {out['launches']}; {res['seconds']:.1f} s")
+    return res
+
+
+def train_lm_config():
+    """gemma-2b at full width and depth in its own dtype (bf16) and remat,
+    fake-quant binary linears, M=2, K_iters 8."""
+    cfg = get_config("gemma_2b")
+    return cfg.replace(quant=QuantConfig(mode="fake_quant", M=2, K_iters=8))
+
+
+def train_gemma(dev) -> dict:
+    """Phase 8b: three ``build_train_step`` steps of gemma-2b at full width
+    (1 warm, 2 timed), every loss finite, every leaf's moments moved; the
+    params' changes, Algorithm 2's share of a step and the peak memory."""
+    cfg = train_lm_config()
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw(warmup_cosine(3e-4, 10, TRAIN_STEPS))
+    state = train_steps.init_train_state(cfg, opt, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in cm.tree_leaves(state["params"]))
+    before = [t.to("cpu", copy=True) for t in cm.tree_leaves(state["params"])]
+    step_fn = train_steps.build_train_step(cfg, opt)
+    data = SyntheticTokens(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0, device=dev)
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        batch = data.next_batch()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(metrics["loss"]))
+        if metrics["skipped"] or not math.isfinite(losses[-1]):
+            fail(f"8b: step {len(losses) - 1} loss {losses[-1]} is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    changed = {}
+    paths = param_paths(state["params"])
+    for path, old, new, mu in zip(paths, before, cm.tree_leaves(state["params"]),
+                                  cm.tree_leaves(state["opt_state"]["mu"])):
+        if not bool(torch.isfinite(mu).all()) or not bool((mu != 0).any()):
+            fail(f"8b: the moments of {path} did not move (no gradient reached it)")
+        changed[path] = float((new.cpu() != old).float().mean())
+    frozen = [p for p, f in changed.items() if f == 0.0]
+    if [p for p in frozen if not p.endswith("scale")]:
+        fail(f"8b: these weight leaves did not change: {frozen}")
+    # Algorithm 2 alone over the 126 binary linears (one forward's worth)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_lin = 0
+    for path, leaf in zip(paths, cm.tree_leaves(state["params"])):
+        if leaf.ndim == 3:
+            for w in leaf:
+                with torch.no_grad():
+                    bz.reconstruct(bz.algorithm2(w.to(torch.float32), 2, K_iters=8))
+                n_lin += 1
+    torch.cuda.synchronize()
+    alg2_s = time.perf_counter() - t1
+    step_ms = 1e3 * statistics.median(step_s[1:])
+    res = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
+                      "remat": cfg.remat, "M": 2, "K_iters": 8, "batch": TRAIN_BATCH,
+                      "seq": TRAIN_SEQ},
+           "n_params": n_params, "init_s": init_s, "losses": losses,
+           "step_ms": [1e3 * s for s in step_s], "median_step_ms": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "algorithm2_linears": n_lin, "algorithm2_s": alg2_s,
+           "algorithm2_share": 2 * alg2_s / (step_ms / 1e3),
+           "max_memory_allocated_gb": peak / 1e9, "changed_fraction": changed,
+           "unchanged_leaves": frozen, "seconds": time.time() - t0}
+    print(f"phase 8b: gemma-2b {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}, remat {cfg.remat}, fake-quant M=2: {n_params} "
+          f"params, state built in {init_s:.1f} s; losses {[round(x, 4) for x in losses]}; "
+          f"median step {step_ms:.1f} ms ({res['tokens_per_s']:.1f} tokens/s) of "
+          f"{[round(1e3 * s, 1) for s in step_s]} ms; Algorithm 2 alone over {n_lin} linears "
+          f"{alg2_s:.3f} s, twice per step under remat = {res['algorithm2_share']:.3f} of a "
+          f"step; max_memory_allocated {peak / 1e9:.2f} GB; leaves unchanged in bf16 "
+          f"{frozen}; {res['seconds']:.1f} s")
+    return res
+
+
+def param_paths(tree, prefix="") -> list:
+    """'/'-joined paths of a tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in param_paths(tree[k], f"{prefix}/{k}")]
+    return [prefix.lstrip("/")]
+
+
+@contextlib.contextmanager
+def nan_on_call(n: int):
+    """``api.loss_fn`` returns a non-finite loss on its n-th call (the
+    injected fault of phase 8c), the real one before and after."""
+    real, calls = api.loss_fn, {"n": 0}
+
+    def patched(cfg, params, batch):
+        loss, metrics = real(cfg, params, batch)
+        calls["n"] += 1
+        if calls["n"] == n:
+            loss = loss * float("nan")
+            metrics = dict(metrics, loss=loss)
+        return loss, metrics
+
+    api.loss_fn = patched
+    try:
+        yield
+    finally:
+        api.loss_fn = real
+
+
+def train_resume(dev, out_dir: Path) -> dict:
+    """Phase 8c: ``Trainer`` on the card at reduced(gemma_2b), fp32, with
+    deterministic algorithms: 10 steps checkpointed at 5 and 10; a run killed
+    at 5 and resumed by a fresh Trainer ends with the same embedding table
+    (torch.equal); one injected non-finite loss is skipped and counted."""
+    cfg = reduced(get_config("gemma_2b")).replace(dtype="float32")
+    root = out_dir / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+
+    def trainer(name: str, total: int) -> Trainer:
+        opt = adamw(1e-3)
+        return Trainer(train_steps.build_train_step(cfg, opt),
+                       train_steps.init_train_state(cfg, opt, device=dev),
+                       SyntheticTokens(cfg.vocab, 16, 4, seed=0, device=dev),
+                       TrainerConfig(total_steps=total, checkpoint_every=5,
+                                     checkpoint_dir=str(root / name), log_every=100))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        full = trainer("full", 10)
+        full.run()
+        trainer("killed", 5).run()
+        resumed = trainer("killed", 10)
+        if not resumed.maybe_resume() or resumed.report.resumed_from != 5:
+            fail(f"8c: no resume from step 5 (resumed_from {resumed.report.resumed_from})")
+        resumed.run()
+        a, b = full.state["params"]["embed"]["table"], resumed.state["params"]["embed"]["table"]
+        if not torch.equal(a, b):
+            fail(f"8c: the resumed run's embedding table differs, max |d| "
+                 f"{float((a - b).abs().max()):.3g}")
+        guarded = trainer("nan", 3)
+        with nan_on_call(2):
+            report = guarded.run()
+        if report.nan_skips != 1 or int(guarded.state["step"]) != 2:
+            fail(f"8c: nan_skips {report.nan_skips}, step {int(guarded.state['step'])} "
+                 "(want 1 and 2)")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    res = {"losses": full.report.losses, "resumed_losses": resumed.report.losses,
+           "nan_skips": report.nan_skips, "seconds": time.time() - t0}
+    print(f"phase 8c: Trainer on the card (reduced gemma-2b, fp32, deterministic): 10 steps, "
+          f"loss {full.report.losses[0]:.4f} -> {full.report.losses[-1]:.4f}; killed at 5 and "
+          f"resumed: embedding table torch.equal; one injected NaN skipped (nan_skips "
+          f"{report.nan_skips}); {res['seconds']:.1f} s")
+    return res
+
+
+def train_phase(dev, out_dir: Path) -> dict:
+    """Phase 8: training on the card (8a CNN-A, 8b gemma-2b, 8c Trainer)."""
+    t0 = time.time()
+    cnn_a = train_cnn_a(dev)
+    gemma = train_gemma(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume = train_resume(dev, out_dir)
+    print(f"phase 8: {time.time() - t0:.1f} s")
+    return {"cnn_a": cnn_a, "gemma": gemma, "trainer": resume}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    # phase 8c's bit-exact resume needs deterministic cuBLAS, whose workspace
+    # is fixed by this variable before the first cuBLAS call
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     t_start = time.time()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1002,6 +1262,10 @@ def main() -> int:
 
     serve = serve_phase(nets["mobilenet"][0], quant, gen, dev, out_dir)
     lm = lm_phase(gen, dev, out_dir)
+    gc.collect()                      # phase 7's model is gone: its memory goes back
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train = train_phase(dev, out_dir)
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -1010,22 +1274,25 @@ def main() -> int:
         t_ops = tot["flops"] / FP32_FLOPS * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name] + lm["serve"]["launches"][name],
+            "launches": (launches[name] + lm["serve"]["launches"][name]
+                         + train["cnn_a"]["launches"][name]),
             "max_abs_err": max(max_err[name], lm["max_abs_err"] if name == "binary_matmul"
                                else 0.0),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": tot["library_ms"], "instr_ms": tot["instr_ms"],
             "cnn_launches": launches[name], "serve_launches": serve["launches"][name],
-            "lm_launches": lm["serve"]["launches"][name]})
+            "lm_launches": lm["serve"]["launches"][name],
+            "train_launches": train["cnn_a"]["launches"][name]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
          "kernels": kernels, "layers": rows, "forward": forward, "profiles": profiles,
-         "serve": serve, "lm": lm},
+         "serve": serve, "lm": lm, "train": train},
         indent=1))
     print("timings: ms, plain_ms, library_ms and bound_ms sum one forward of CNN-A "
           "(batch 64) and one of MobileNetV1-224 (batch 16); launches counts phases 2 "
-          "and 3 (three calls of each network) and phase 7's serving of gemma-2b; the "
+          "and 3 (three calls of each network), phase 7's serving of gemma-2b and phase "
+          "8a's execute of the retrained CNN-A; the "
           "LM shapes' times are under \"lm\" in chiprun_out/chip_smoke.json")
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

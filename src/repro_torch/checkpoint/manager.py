@@ -145,6 +145,8 @@ def _unflatten(treedef, leaves):
         new = [build(child) for _, child in kids]
         if isinstance(node, dict):
             return {k: v for (k, _), v in zip(kids, new)}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):   # a NamedTuple
+            return type(node)(*new)
         if isinstance(node, (tuple, list)):
             return type(node)(new)
         return dataclasses.replace(node, **{f: v for (f, _), v in zip(kids, new)})
@@ -155,16 +157,37 @@ def _unflatten(treedef, leaves):
     return rebuilt
 
 
+# numpy has no bfloat16: a bfloat16 leaf is stored as 2-byte voids and
+# recorded as "bfloat16", which is what the JAX package's save writes
+_BF16_STORED = np.dtype("V2")
+
+
 def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_STORED)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16_STORED else str(arr.dtype)
 
 
 def _numpy_dtype(target) -> np.dtype:
     if isinstance(target, torch.Tensor):
+        if target.dtype == torch.bfloat16:
+            return _BF16_STORED
         return torch.empty((), dtype=target.dtype).numpy().dtype
     return np.dtype(target.dtype)
+
+
+def _to_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
+    if arr.dtype == _BF16_STORED:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(like.device)
+    return torch.from_numpy(arr).to(like.device)
 
 
 class CheckpointManager:
@@ -240,7 +263,7 @@ class CheckpointManager:
                 arr = np.ascontiguousarray(host).reshape(host.shape)
                 arrays[key.replace("/", "__")] = arr
                 meta["leaves"][key] = {
-                    "shape": list(arr.shape), "dtype": str(arr.dtype),
+                    "shape": list(arr.shape), "dtype": _dtype_name(arr),
                     "crc32": crc32_hex(arr.tobytes())}
             meta["manifest_crc32"] = _manifest_digest(meta)
             np.savez(os.path.join(tmp, f"host_{self.host_id}.npz"), **arrays)
@@ -364,7 +387,7 @@ class CheckpointManager:
                     f"absent from npz", step=step)
             arr = data[nkey]
             if list(arr.shape) != list(info["shape"]) or \
-                    str(arr.dtype) != info["dtype"]:
+                    _dtype_name(arr) != info["dtype"]:
                 raise LeafMismatch(
                     f"step {step}: leaf {key!r} loaded as "
                     f"{arr.dtype}{tuple(arr.shape)} but manifest records "
@@ -496,8 +519,7 @@ class CheckpointManager:
                         step=step, leaf=key)
                 arr = arr.astype(want_dtype)
             if isinstance(tgt, torch.Tensor):
-                out.append(torch.from_numpy(np.ascontiguousarray(arr).reshape(
-                    arr.shape)).to(tgt.device))
+                out.append(_to_tensor(arr, tgt))
             else:
                 out.append(arr)
         return _unflatten(treedef, out), meta["extra"]

@@ -4,10 +4,10 @@ Every ported architecture has one ``configs/<id>.py`` exporting ``CONFIG``
 (the JAX package's file with its import pointed here); ``get_config(name)``
 resolves it and ``reduced(cfg)`` shrinks it for CPU tests.  ``ArchConfig``
 holds the JAX package's fields that the dense family reads, under the same
-names and defaults; the MoE, MLA, SSM, hybrid, enc-dec and VLM fields come
-with the slices that port those families (ROADMAP items 12b-12e), and the
-JAX package's sharding and compilation knobs with ``distributed/`` and
-training.  The dry run's shape cells and input specs (``SHAPES``,
+names and defaults, and the two training knobs (``remat``,
+``onehot_loss``); the MoE, MLA, SSM, hybrid, enc-dec and VLM fields come
+with the slices that port those families (ROADMAP), and the JAX package's
+sharding knobs with ``distributed/``.  The dry run's shape cells and input specs (``SHAPES``,
 ``input_specs``, ``cells``) are not ported yet (ROADMAP item 14).
 """
 from __future__ import annotations
@@ -44,7 +44,9 @@ class ArchConfig:
     # --- numerics / quant ---
     dtype: str = "bfloat16"
     quant: QuantConfig = QuantConfig(mode="dense")
+    remat: bool = True               # recompute each layer's forward in backward
     attn_chunk: int | None = None    # query-chunked attention (flash-style)
+    onehot_loss: bool = False        # CE as logsumexp minus a one-hot contraction
 
     @property
     def resolved_head_dim(self) -> int:
@@ -73,5 +75,5 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads else 0,
         d_ff=128, vocab=512, head_dim=16,
-        sliding_window=32 if cfg.sliding_window else None,
+        sliding_window=32 if cfg.sliding_window else None, remat=False,
     )

@@ -169,3 +169,51 @@ def unpack_bits(packed: torch.Tensor, K: int) -> torch.Tensor:
     shifts = torch.arange(8, dtype=torch.int32, device=packed.device).reshape(1, 1, 8, 1)
     bits = (packed.to(torch.int32)[:, :, None, :] >> shifts) & 1
     return (bits * 2 - 1).to(torch.int8).reshape(M, K, N)
+
+
+# ---------------------------------------------------------------------------
+# Compression factor (paper Eq. 6)
+# ---------------------------------------------------------------------------
+
+def compression_factor(N_c: int, M: int, *, bits_w: int = 32, bits_alpha: int = 8,
+                       n_bias: int = 1) -> float:
+    """(N_c + 1)·bits_w / (M·(N_c + bits_alpha)), paper Eq. 6 exactly."""
+    return ((N_c + n_bias) * bits_w) / (M * (N_c + bits_alpha))
+
+
+# ---------------------------------------------------------------------------
+# Straight-through estimator (paper §V-B1 retraining)
+# ---------------------------------------------------------------------------
+
+class _STEBinarize(torch.autograd.Function):
+    """Forward: the binary reconstruction ``W_hat`` itself; backward: the
+    upstream gradient to ``W`` unchanged, none to ``W_hat``."""
+
+    @staticmethod
+    def forward(ctx, W, W_hat):
+        return W_hat
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def ste_binarize(W: torch.Tensor, W_hat: torch.Tensor) -> torch.Tensor:
+    """BinaryNet's straight-through estimation ([5] in the paper), used for
+    the paper's one-epoch retraining: the forward gives ``W_hat`` bit for bit
+    (``W + (W_hat - W).detach()`` would round), and gradients reach the latent
+    real-valued weights as if the binarization were the identity."""
+    return _STEBinarize.apply(W, W_hat)
+
+
+def fake_quant(W: torch.Tensor, M: int, *, algorithm: int = 2, K_iters: int = 8,
+               group_size: int | None = None) -> torch.Tensor:
+    """QAT forward: W [K, N] -> STE(binary reconstruction of W).  Algorithm 1
+    or 2 runs on ``W.detach()`` under ``no_grad``, off the autograd tape (the
+    JAX package's ``stop_gradient``); only the STE carries the gradient."""
+    with torch.no_grad():
+        Wd = W.detach()
+        approx = (algorithm2(Wd, M, K_iters=K_iters, group_size=group_size)
+                  if algorithm == 2 else algorithm1(Wd, M, group_size=group_size))
+        W_hat = reconstruct(approx)
+    return ste_binarize(W, W_hat)

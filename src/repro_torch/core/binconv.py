@@ -1,8 +1,19 @@
-"""Binary-approximated convolution helpers (paper §III) in PyTorch, NHWC.
+"""Binary-approximated convolution (paper §III) in PyTorch, NHWC.
 
 Port of ``repro/core/binconv.py``: asymmetric SAME padding, im2col (which
-the plain conv version uses), and offline packing of conv and depth-wise
-filters into the kernels' per-tap layouts.
+the plain conv version uses), offline packing of conv and depth-wise
+filters into the kernels' per-tap layouts, and the fp forwards that
+training runs over fp trees, in ``dense`` and ``fake_quant`` modes:
+
+  * ``conv2d``: im2col + matmul, as the JAX package does (no cuDNN, so no
+    TF32 and no asymmetric-padding pitfall), with W_hat in ``fake_quant``;
+  * ``relu_maxpool`` (the AMU: max-pool, then ReLU) and the unfused
+    ``conv2d_relu_pool``;
+  * ``depthwise_relu``: ``F.conv2d(groups=C)`` over the SAME-padded input,
+    channel-wise W_hat in ``fake_quant``.
+
+Packed trees do not come here: ``deploy.compile`` / ``execute`` run them on
+the kernels, ``models/cnn.spec_forward`` on the plain versions.
 """
 from __future__ import annotations
 
@@ -10,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import binarize as bz
-from repro_torch.core.binlinear import QuantConfig
+from repro_torch.core.binlinear import DENSE, QuantConfig
 from repro_torch.kernels.binary_conv import pack_taps
 from repro_torch.kernels.binary_dwconv import pack_dw_taps
 
@@ -91,3 +102,78 @@ def binarize_dwconv_params(params: dict, quant: QuantConfig) -> dict:
     if "b" in params:
         out["b"] = params["b"]
     return out
+
+
+def _fp_weights(params: dict, where: str) -> torch.Tensor:
+    if "w" not in params:
+        raise ValueError(f"{where} takes fp trees ('w'); packed trees run through "
+                         "deploy.compile/execute or models.cnn.spec_forward")
+    return params["w"]
+
+
+def conv2d(params: dict, x: torch.Tensor, *, stride: int = 1, padding: str = "VALID",
+           quant: QuantConfig = DENSE) -> torch.Tensor:
+    """Conv via im2col + (dense | fake-quant) matmul, plus bias.
+    params['w']: HWIO [kh, kw, C, D]; x NHWC."""
+    w = _fp_weights(params, "conv2d")
+    if quant.mode not in ("dense", "fake_quant"):
+        raise ValueError(f"conv2d over fp trees runs dense or fake_quant, not {quant.mode!r}")
+    kh, kw, C, D = w.shape
+    patches = im2col(x, kh, kw, stride, padding)
+    B, U, V, K = patches.shape
+    W = w.reshape(K, D)
+    if quant.mode == "fake_quant":
+        W = bz.fake_quant(W.to(torch.float32), quant.M, algorithm=quant.algorithm,
+                          K_iters=quant.K_iters, group_size=quant.group_size)
+    y = (patches.reshape(B * U * V, K) @ W.to(patches.dtype)).reshape(B, U, V, D)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+def relu_maxpool(x: torch.Tensor, pool: int) -> torch.Tensor:
+    """AMU: max-pool (downsampling only, paper §III-B), then ReLU.  ReLU is
+    ``maximum(y, 0)``, whose gradient at a tie is split in half, as
+    ``jnp.maximum``'s is."""
+    B, H, W, C = x.shape
+    if H % pool or W % pool:
+        raise ValueError(f"pool {pool} must divide the {H}x{W} map (downsampling only, "
+                         "paper §III-B)")
+    y = x if pool == 1 else x.reshape(B, H // pool, pool, W // pool, pool, C).amax(dim=(2, 4))
+    return torch.maximum(y, y.new_zeros(()))
+
+
+def conv2d_relu_pool(params: dict, x: torch.Tensor, *, stride: int = 1,
+                     padding: str = "VALID", pool: int = 1,
+                     quant: QuantConfig = DENSE) -> torch.Tensor:
+    """Conv + bias + max-pool + ReLU, the paper's PE -> PA -> AMU pipeline,
+    unfused (the fused form is the ``binary_conv`` kernel of ``deploy``)."""
+    return relu_maxpool(conv2d(params, x, stride=stride, padding=padding, quant=quant), pool)
+
+
+def _dwconv_fp(w: torch.Tensor, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """fp depth-wise conv, SAME padding (asymmetric, high side first).
+    w: HWIO [kh, kw, 1, C]; x NHWC."""
+    kh, kw, _, C = w.shape
+    xp = pad_nhwc(x, kh, kw, stride, "SAME").permute(0, 3, 1, 2)
+    y = F.conv2d(xp, w.permute(3, 2, 0, 1).to(x.dtype), stride=stride, groups=C)
+    return y.permute(0, 2, 3, 1)
+
+
+def depthwise_relu(params: dict, x: torch.Tensor, *, stride: int = 1,
+                   quant: QuantConfig = DENSE) -> torch.Tensor:
+    """Depth-wise conv + bias + ReLU, the paper's §V-A3 channel-wise stage,
+    over fp trees: in ``fake_quant`` mode through the channel-wise W_hat
+    (each channel one filter of kh·kw taps, as ``binarize_dwconv_params``),
+    otherwise dense.  Always SAME padding (MobileNet's only variant)."""
+    w = _fp_weights(params, "depthwise_relu")
+    if quant.mode == "fake_quant":
+        kh, kw, one, C = w.shape
+        W_hat = bz.fake_quant(w.reshape(kh * kw, C).to(torch.float32), quant.M,
+                              algorithm=quant.algorithm, K_iters=quant.K_iters,
+                              group_size=None)
+        w = W_hat.reshape(kh, kw, one, C)
+    y = _dwconv_fp(w, x, stride)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return torch.relu(y)

@@ -6,8 +6,10 @@ Two execution modes of ``apply_linear``, keyed on the params' form:
     ``y = sum_{m<m_active} alpha_m (x @ B_m)`` (paper Eq. 8), through
     ``kernels/ops.binary_matmul``, which launches the CUDA kernel for a
     tensor on the card and runs the plain version for one on the CPU;
-  * fp trees run ``x @ W`` (``dense``).  ``fake_quant`` (retraining with a
-    straight-through gradient) waits for the training slice, ROADMAP item 13.
+  * fp trees follow ``qc.mode``: ``dense`` runs ``x @ W``; ``fake_quant``
+    (QAT / retraining, paper §V-B1) runs ``x @ W_hat`` with W_hat the
+    Algorithm 1/2 reconstruction of W and a straight-through gradient to the
+    latent fp weights (``binarize.fake_quant``).
 
 ``m_active`` is the paper's runtime accuracy<->throughput switch (§IV-D);
 ``m_schedule`` gives it per decoder layer (``models/common.layer_quant_cfg``
@@ -73,8 +75,9 @@ def apply_linear(params: dict, x: torch.Tensor, qc: QuantConfig = DENSE) -> torc
     if "B_packed" in params:
         y = _apply_binary(params, x, qc)
     elif qc.mode == "fake_quant":
-        raise NotImplementedError(
-            "fake_quant (retraining) waits for the training slice, ROADMAP item 13")
+        W_hat = bz.fake_quant(params["w"].to(torch.float32), qc.M, algorithm=qc.algorithm,
+                              K_iters=qc.K_iters, group_size=qc.group_size)
+        y = x @ W_hat.to(x.dtype)
     else:
         y = x @ params["w"].to(x.dtype)
     if "b" in params:

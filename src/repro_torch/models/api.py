@@ -4,6 +4,7 @@ The surface the serving runtime, tests and ``chip_smoke.py`` use:
 
   init_params(cfg, gen)                  -> params tree (stacked layers)
   forward(cfg, params, batch)            -> (logits, aux)
+  loss_fn(cfg, params, batch)            -> (loss, metrics)
   cache_specs / init_cache               -> decode cache
   decode_step(cfg, params, batch)        -> (logits, cache)
   prefill(cfg, params, tokens, max_len)  -> (logits, cache)
@@ -12,12 +13,13 @@ The surface the serving runtime, tests and ``chip_smoke.py`` use:
   count_params(cfg)                      -> int
 
 Only the dense family is ported; every other family raises
-``NotImplementedError`` naming its ROADMAP item.  ``loss_fn`` waits for the
-training slice (ROADMAP item 13).
+``NotImplementedError`` naming its ROADMAP item (the MoE load-balance and
+MTP loss terms come with MoE).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -54,6 +56,24 @@ def forward(cfg: ArchConfig, params, batch):
     """Full-sequence forward -> (logits [B, S, V], aux dict)."""
     _dense_only(cfg)
     return tf_mod.lm_forward(params, cfg, batch["tokens"])
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    """Next-token cross-entropy over fp32 logits -> (loss, metrics).  With
+    ``cfg.onehot_loss`` it is logsumexp minus a one-hot contraction (the JAX
+    package's vocab-sharded form), else log-softmax and a gather."""
+    _dense_only(cfg)
+    labels = batch["labels"].long()
+    logits, _ = forward(cfg, params, batch)
+    lg = logits.to(torch.float32)
+    if cfg.onehot_loss:
+        onehot = F.one_hot(labels, lg.shape[-1]).to(lg.dtype)
+        nll = torch.logsumexp(lg, dim=-1) - torch.einsum("bsv,bsv->bs", lg, onehot)
+    else:
+        logp = torch.log_softmax(lg, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    loss = torch.mean(nll)
+    return loss, {"ce_loss": loss, "loss": loss}
 
 
 # ---------------------------------------------------------------------------

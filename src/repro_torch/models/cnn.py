@@ -1,10 +1,12 @@
 """The paper's evaluation networks (§V-A1) as LayerSpec lists, in PyTorch.
 
-Port of ``repro/models/cnn.py`` for the deployment path: the same
-``LayerSpec`` lists (the single topology source the compiler walks), the
+Port of ``repro/models/cnn.py``: the same ``LayerSpec`` lists (the single
+topology source the forwards, the packing walk and the compiler share), the
 same weight shapes and init scales (drawn from a ``torch.Generator``), the
-offline packing walk, and a plain spec-driven forward over packed trees
-that runs the ``kernels/ref.py`` versions.
+offline packing walk, the training forwards over fp trees in ``dense`` and
+``fake_quant`` modes (``cnn_a_forward``, ``mobilenet_forward``), and a plain
+spec-driven forward over packed trees that runs the ``kernels/ref.py``
+versions (``spec_forward``).
 
   * CNN-A: 2 conv (5@7x7x3, 150@4x4x5) + 3 dense (1350->340->490->43).
   * MobileNetV1 (CNN-B2 at width 1.0, 224²), depth-wise layers approximated
@@ -20,7 +22,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import binconv
 from repro_torch.core import binlinear as bl
-from repro_torch.core.binlinear import QuantConfig
+from repro_torch.core.binlinear import DENSE, QuantConfig
 from repro_torch.kernels import ref as kref
 
 
@@ -171,3 +173,52 @@ def spec_forward(specs, params: dict, x: torch.Tensor,
             if s.relu:
                 y = torch.relu(y)
     return y
+
+
+def _forward(specs, params: dict, x: torch.Tensor, quant: QuantConfig) -> torch.Tensor:
+    """Spec-driven forward over an fp tree, ``dense`` or ``fake_quant``.
+    Every conv stage ends in the AMU's max-pool + ReLU, as in the reference."""
+    y = x
+    for s in specs:
+        y = apply_pre(s.pre, y)
+        if s.kind == "conv":
+            y = binconv.conv2d_relu_pool(params[s.name], y, stride=s.stride,
+                                         padding=s.padding, pool=s.pool, quant=quant)
+        elif s.kind == "dwconv":
+            y = binconv.depthwise_relu(params[s.name], y, stride=s.stride, quant=quant)
+        else:
+            y = bl.apply_linear(params[s.name], y, quant)
+            if s.relu:
+                y = torch.relu(y)
+    return y
+
+
+def cnn_a_forward(params: dict, x: torch.Tensor, quant: QuantConfig = DENSE) -> torch.Tensor:
+    """x [B, 48, 48, 3] -> logits [B, 43] over an fp tree (the training
+    paths); packed trees go through ``deploy`` or ``spec_forward``."""
+    return _forward(CNN_A_SPECS, params, x, quant)
+
+
+def mobilenet_forward(params: dict, x: torch.Tensor,
+                      quant: QuantConfig = DENSE) -> torch.Tensor:
+    """x [B, R, R, 3] -> logits over an fp tree; depth-wise layers are
+    approximated channel-wise in ``fake_quant`` (paper §V-A3)."""
+    return _forward(MOBILENET_SPECS, params, x, quant)
+
+
+def binarize_cnn_a(params: dict, quant: QuantConfig) -> dict:
+    """Offline conversion of every CNN-A layer to packed-binary form."""
+    return spec_binarize(CNN_A_SPECS, params, quant)
+
+
+def binarize_mobilenet(params: dict, quant: QuantConfig) -> dict:
+    """Offline conversion of every MobileNet layer to packed-binary form."""
+    return spec_binarize(MOBILENET_SPECS, params, quant)
+
+
+def cnn_a_macs() -> int:
+    """Analytic MAC count of CNN-A (the paper says ~9M)."""
+    m_conv1 = 42 * 42 * 5 * 7 * 7 * 3
+    m_conv2 = 18 * 18 * 150 * 4 * 4 * 5
+    m_fc = 1350 * 340 + 340 * 490 + 490 * 43
+    return m_conv1 + m_conv2 + m_fc

@@ -33,6 +33,14 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """Leaves of nested dicts, keys in sorted order (``jax.tree.leaves``'s
+    order, so the two packages list a tree's leaves alike)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
 def tree_index(tree, i: int):
     """Entry ``i`` of every stacked ``[L, ...]`` leaf (views, no copy)."""
     return tree_map(lambda t: t[i], tree)

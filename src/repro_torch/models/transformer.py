@@ -4,12 +4,16 @@ Layer params are stacked ``[L, ...]`` as in the JAX package, so a JAX tree
 crosses over as it is; every walk slices layer ``i`` out of the stack (a
 view) and resolves the per-layer §IV-D schedule (``cm.layer_quant_cfg``).
 PyTorch runs eagerly, so the JAX package's scanned and unrolled walks are
-one loop here.  MoE / MLA layers, the leading dense stack and the MTP head
+one loop here.  ``cfg.remat`` wraps each layer's training forward in
+``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps it in
+``jax.checkpoint``: the layer's activations are recomputed in backward, a
+fake-quant layer's Algorithm 2 with them.  MoE / MLA layers, the leading dense stack and the MTP head
 wait with MoE (ROADMAP item 12b).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -90,9 +94,14 @@ def _n_layers(stacked) -> int:
 
 
 def _run_stack(stacked, x, cfg: ArchConfig, positions, mask):
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(_n_layers(stacked)):
-        x = layer_forward(cm.tree_index(stacked, i), x, cm.layer_quant_cfg(cfg, i),
-                          positions=positions, mask=mask)
+        args = (cm.tree_index(stacked, i), x, cm.layer_quant_cfg(cfg, i))
+        if remat:
+            x = checkpoint(layer_forward, *args, positions=positions, mask=mask,
+                           use_reentrant=False)
+        else:
+            x = layer_forward(*args, positions=positions, mask=mask)
     return x
 
 

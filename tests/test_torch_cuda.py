@@ -332,3 +332,35 @@ def test_lm_server_on_the_card_matches_the_cpu(card):
         assert a.out_tokens == b.out_tokens
         torch.testing.assert_close(torch.from_numpy(a.last_logits),
                                    torch.from_numpy(b.last_logits), rtol=2e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("mode", ["dense", "fake_quant"])
+def test_train_step_on_the_card_matches_the_cpu(card, mode):
+    """One ``build_train_step`` step of a reduced gemma (fp32, TF32 off) on
+    the card and on the CPU from the same state: loss, moments and params
+    within rtol 1e-5 with a floor of 1e-5 x each leaf's largest entry (the
+    CPU parity tests' tolerance; eps 1e-3 keeps Adam's first step from
+    dividing a grad near 0 by itself)."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch import steps
+    from repro_torch.models import common as cm
+    from repro_torch.optim import adamw
+
+    cfg = reduced(get_config("gemma_2b")).replace(
+        dtype="float32", quant=QuantConfig(mode=mode, M=2, K_iters=4))
+    opt = adamw(1e-2, eps=1e-3)
+    host = steps.init_train_state(cfg, opt, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 17), generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    out = {}
+    for where in ("cpu", "cuda"):
+        state = cm.tree_map(lambda t: t.clone().to(where) if t.ndim else t.clone(), host)
+        out[where] = steps.build_train_step(cfg, opt)(
+            state, cm.tree_map(lambda t: t.to(where), batch))
+    torch.cuda.synchronize()
+    (sc, mc), (sg, mg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(mg["loss"].cpu(), mc["loss"], rtol=1e-5, atol=0)
+    for a, b in zip(cm.tree_leaves(sg), cm.tree_leaves(sc)):
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5 * scale)

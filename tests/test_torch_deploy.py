@@ -196,14 +196,18 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.convert, repro_torch.kernels.ops, repro_torch.checkpoint.manager, "
             "repro_torch.deploy.selftest, repro_torch.analysis.verify, "
             "repro_torch.serve_cnn, repro_torch.testing.faults, repro_torch.configs.base, "
-            "repro_torch.models.api, repro_torch.launch.serve; "
+            "repro_torch.models.api, repro_torch.launch.serve, repro_torch.data.images, "
+            "repro_torch.data.tokens, repro_torch.optim, repro_torch.core.quant, "
+            "repro_torch.core.compress, repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.runtime.trainer; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.'))"
             " or m == 'repro']; print(bad); sys.exit(1 if bad else 0)")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    for path in list((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for path in list((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+            ROOT / "chip_smoke.py", ROOT / "tools" / "torch_train_cnn_a.py"]:
         text = path.read_text()
         for bad in ("import repro.", "from repro.", "from repro import", "import jax"):
             assert bad not in text, f"{path} contains {bad!r}"

@@ -82,6 +82,7 @@ def test_configs_match_the_reference(name):
     """Every field the port's ArchConfig holds has the reference's value,
     at full size and reduced; the defaults agree too."""
     names = [f.name for f in dataclasses.fields(tcb.ArchConfig) if f.name != "quant"]
+    assert {"remat", "onehot_loss"} <= set(names)      # the training knobs
     jfields = {f.name: f for f in dataclasses.fields(jcb.ArchConfig)}
     for f in dataclasses.fields(tcb.ArchConfig):
         if f.name != "quant" and f.default is not dataclasses.MISSING:
@@ -147,6 +148,9 @@ def test_apply_linear_matches_the_reference(one_linear, route, m_active):
 
 
 def test_apply_linear_dense_and_fake_quant():
+    """fp trees in both modes against the reference: the output, and in
+    fake_quant the straight-through gradients to w (the upstream gradient
+    through x, unchanged by the binarization) and to x (through W_hat)."""
     rng = np.random.default_rng(1)
     w = rng.standard_normal((16, 8)).astype(np.float32)
     b = rng.standard_normal(8).astype(np.float32)
@@ -155,9 +159,20 @@ def test_apply_linear_dense_and_fake_quant():
     got = tbl.apply_linear({"w": torch.from_numpy(w), "b": torch.from_numpy(b)},
                            torch.from_numpy(x))
     _close(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        tbl.apply_linear({"w": torch.from_numpy(w)}, torch.from_numpy(x),
-                         tbl.QuantConfig(mode="fake_quant"))
+    jq = jbl.QuantConfig(mode="fake_quant", M=2, K_iters=8)
+    tq = tbl.QuantConfig(mode="fake_quant", M=2, K_iters=8)
+    want, jgrads = jax.value_and_grad(
+        lambda p, x: jnp.sum(jbl.apply_linear(p, x, jq) ** 2), argnums=(0, 1))(
+        {"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x))
+    tp = {"w": torch.from_numpy(w).requires_grad_(), "b": torch.from_numpy(b).requires_grad_()}
+    tx = torch.from_numpy(x).requires_grad_()
+    y = tbl.apply_linear(tp, tx, tq)
+    got = torch.sum(y ** 2)
+    gw, gb, gx = torch.autograd.grad(got, (tp["w"], tp["b"], tx))
+    _close(got.detach(), want)
+    for g, jg in ((gw, jgrads[0]["w"]), (gb, jgrads[0]["b"]), (gx, jgrads[1])):
+        _close(g, jg)
+    assert torch.equal(gw, tx.detach().T @ (2 * y.detach()))   # the STE: dL/dW_hat
 
 
 def _tokens(B, S, seed=0):
