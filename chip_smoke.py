@@ -75,7 +75,28 @@ source, all at once) and runs, each phase failing loudly:
      at reduced(gemma_2b), fp32, deterministic algorithms: a run killed at
      step 5 and resumed ends ``torch.equal`` to the uninterrupted one, one
      injected non-finite loss is skipped and counted (checkpoints in
-     ``chiprun_out/train_ckpt/``).
+     ``chiprun_out/train_ckpt/``);
+  9. the verification tier: (a) fuzz: 128 random networks
+     (``testing/fuzz.random_network`` seeds 0-127, the JAX package's draws)
+     compiled on the card with zero verifier ERRORs, ``execute`` at each
+     network's execute batch and m_active None and 1 torch.equal to the
+     per-call kernel path (each layer through ``kernels.ops`` with its own
+     plan pick) and within rtol 1e-4 / atol 1e-4·max|logit| of
+     ``execute_reference``; every rare shape drawn at least once (pool 3,
+     kh != kw, stride 2 with a pool, VALID, C not a multiple of 8, 1x1 at
+     stride 2, depth-wise stride 2, M = 1, an execute batch over the
+     compiled one); (b) ``trace_lint`` on phases 2-3's programs: no library
+     conv or product, plan pick or float64 at m_active None, 1 and per
+     layer, and one launch per instruction over 3 repeats; (c) soaks
+     through ``run_soak`` + ``assert_flat`` at the JAX defaults, every
+     gauge (live device bytes included) exactly flat after warmup: the
+     executor over CNN-A and MobileNetV1-224 at batch 16 (520 steps),
+     ``CNNService`` under fault storms (324 steps, every injected fault
+     reconciled), the checkpoint cycle (120 steps), ``Server`` on reduced
+     gemma-2b (1100 steps, >= 2000 decode steps) and on reduced
+     h2o-danube, qwen3 and codeqwen (200 steps each), each server's first
+     4 rounds equal to the same scenario on the CPU (tokens; logits within
+     rtol 2e-5 / atol 5e-5).  Trend CSVs go to ``chiprun_out/soak/``.
 
 Weights are random, drawn from a seeded generator.  The logits of phases 2
 and 3 are compared with rtol 1e-4 and atol 1e-4·max|logit| (a relative
@@ -83,12 +104,13 @@ floor: the reference's random MobileNet init shrinks activations to ~1e-13
 by the head, and 28 layers of fp32 sums run in another order on each side).
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` counts the main
-paths of phases 2, 3, 7 and 8a, ``cnn_launches`` phases 2-3,
-``serve_launches`` phase 6, ``lm_launches`` phase 7's serving and
-``train_launches`` phase 8a's execute), nvidia-smi's line, and last
-``{"ok": true, "device": {...}}``; per-instruction numbers go to
-``chiprun_out/chip_smoke.json``, phase 7's under ``"lm"``, phase 8's under
-``"train"``.  Exits non-zero, printing no result,
+paths of phases 2, 3, 7, 8a, 9a and 9c, ``cnn_launches`` phases 2-3,
+``serve_launches`` phase 6, ``lm_launches`` phase 7's serving,
+``train_launches`` phase 8a's execute, ``fuzz_launches`` phase 9a's
+``execute`` calls and ``soak_launches`` phase 9c's soaks), nvidia-smi's
+line, and last ``{"ok": true, "device": {...}}``; per-instruction numbers
+go to ``chiprun_out/chip_smoke.json``, phase 7's under ``"lm"``, phase 8's
+under ``"train"``, phase 9's under ``"verify"``.  Exits non-zero, printing no result,
 without a card or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
@@ -132,6 +154,10 @@ try:
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.serve_cnn import CNNService, default_ladder
     from repro_torch.testing.faults import FaultInjector, FaultPlan, inject_faults
+    from repro_torch.analysis import trace_lint, verify_program
+    from repro_torch.testing import fuzz
+    from repro_torch.testing import scenarios as soak_sc
+    from repro_torch.testing.soak import TrendViolation, run_soak
 except ImportError as e:
     raise SystemExit(f"chip_smoke: FAILED: the port is not importable from "
                      f"{ROOT / 'src'}: {e}") from e
@@ -1193,6 +1219,263 @@ def train_phase(dev, out_dir: Path) -> dict:
     return {"cnn_a": cnn_a, "gemma": gemma, "trainer": resume}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the verification tier
+# ---------------------------------------------------------------------------
+
+FUZZ_SEEDS = range(128)        # include the JAX package's pinned 0, 3, 6, 11
+MOBILENET_B2 = {"width_mult": 1.0, "n_classes": 1000, "resolution": 224}
+SOAK_STEPS = {"executor": 520, "cnn_server": 324, "checkpoint": 120, "server": 1100}
+SOAK_FAMILIES = ("h2o_danube_1_8b", "qwen3_14b", "codeqwen15_7b")  # 200 steps each
+FAMILY_STEPS, PARITY_ROUNDS = 200, 4
+
+
+def counted_launches(fn, into: dict):
+    """Run ``fn`` with every launch count set to 0 just before it and add
+    the counts read just after into ``into``."""
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    for k, v in ops.launch_counts().items():
+        into[k] += v
+    return out
+
+
+def fuzz_phase(dev) -> dict:
+    """Phase 9a: random networks through the three kernels.  Each seed's
+    network is compiled on the card and verified (zero ERRORs), then
+    ``execute`` at its execute batch, m_active None and 1 (the counted main
+    path, one launch per instruction), is held torch.equal to the per-call
+    kernel path (``fuzz.kernel_forward``: each layer with its own plan pick)
+    and within rtol 1e-4 / atol 1e-4·max|logit| of ``execute_reference``."""
+    t0 = time.time()
+    launches = {k: 0 for k in TPU_KERNELS}
+    covered = {f: [] for f in fuzz.FEATURES}
+    worst = 0.0
+    for seed in FUZZ_SEEDS:
+        net = fuzz.random_network(seed)
+        where = f"9a: seed {seed} ({[s.name for s in net.specs]} @ {net.input_shape}, " \
+                f"exec batch {net.exec_batch}, M {net.M})"
+        qc = QuantConfig(mode="binary", M=net.M, K_iters=2)
+        packed = cnn.spec_binarize(
+            net.specs, net.init_params(torch.Generator().manual_seed(seed), device=dev), qc)
+        prog = deploy.compile(packed, net.specs, qc, net.input_shape, device=dev,
+                              golden=False)
+        errors = [f for f in verify_program(prog) if f.severity == "ERROR"]
+        if errors:
+            fail(f"{where}: verifier ERRORs {[str(f) for f in errors[:3]]}")
+        per_call = {k: 0 for k in TPU_KERNELS}
+        for i in prog.instrs:
+            per_call[KERNEL_OF[i.kind]] += 1
+        x = torch.randn((net.exec_batch,) + net.input_shape[1:],
+                        generator=torch.Generator().manual_seed(seed + 99)).to(dev)
+        for m in (None, 1):
+            before = dict(launches)
+            got = counted_launches(lambda: deploy.execute(prog, x, m), launches)
+            if {k: launches[k] - before[k] for k in launches} != per_call:
+                fail(f"{where} m_active={m}: launches {launches} (from {before}), want "
+                     f"{per_call} more")
+            if not torch.equal(got, fuzz.kernel_forward(net.specs, packed, x, m)):
+                fail(f"{where} m_active={m}: execute is not torch.equal to the per-call "
+                     f"kernel path")
+            want = deploy.execute_reference(prog, x, m)
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            if not bool(torch.isfinite(got).all()) or \
+                    not torch.allclose(got, want, rtol=1e-4, atol=1e-4 * scale):
+                fail(f"{where} m_active={m}: max |d| vs plain {err:.3g} (max |logit| "
+                     f"{scale:.3g})")
+            worst = max(worst, err / max(scale, 1e-30))
+        for f in fuzz.features(net):
+            covered[f].append(seed)
+    missing = [f for f, seeds in covered.items() if not seeds]
+    if missing or any(v == 0 for v in launches.values()):
+        fail(f"9a: features never drawn {missing} or a kernel never launched {launches}")
+    res = {"seeds": len(FUZZ_SEEDS), "launches": launches, "worst_rel_err": worst,
+           "features": {f: len(s) for f, s in covered.items()},
+           "first_seed": {f: s[0] for f, s in covered.items()}, "seconds": time.time() - t0}
+    print(f"phase 9a: {len(FUZZ_SEEDS)} fuzz networks compiled, verified (0 ERRORs), "
+          f"executed at m_active None and 1: torch.equal to the per-call kernel path, "
+          f"within rtol 1e-4 of the plain path (worst max|d|/max|logit| {worst:.3g}); "
+          f"features {res['features']}; launches {launches}; {res['seconds']:.1f} s")
+    return res
+
+
+def lint_phase(programs: dict, inputs: dict) -> dict:
+    """Phase 9b: the trace lint of phases 2-3's programs on the card."""
+    out = {}
+    for arch, program in programs.items():
+        x = inputs[arch]
+        scheds = (None, 1, [1 + (i % 2) for i in range(len(program))])
+        fs = [f for m in scheds for f in trace_lint.lint_execute(program, x, m_active=m)]
+        seen, _, _ = trace_lint.record_ops(lambda: deploy.execute(program, x), ())
+        fs += trace_lint.retrace_findings(program, x, schedules=scheds, repeats=3)
+        if fs:
+            fail(f"9b: {arch}: {[str(f) for f in fs]}")
+        out[arch] = {"findings": 0, "aten_ops_per_call": dict(sorted(seen.items()))}
+        print(f"phase 9b: {arch}: lint_execute at m_active None, 1 and per layer, and "
+              f"retrace over 3 repeats: 0 findings; aten ops of one call "
+              f"{out[arch]['aten_ops_per_call']}")
+    return out
+
+
+def server_rounds(scen, rounds: int) -> list:
+    """Drive a server scenario ``rounds`` steps; after each, every admitted
+    request's tokens so far and last logits."""
+    srv, admitted = scen.subject, []
+    admit = srv.admit
+
+    def recording(req):
+        admitted.append(req)
+        return admit(req)
+
+    srv.admit = recording
+    out = []
+    try:
+        for i in range(1, rounds + 1):
+            scen.step(i)
+            out.append([(list(r.out_tokens), None if r.last_logits is None
+                         else r.last_logits.copy()) for r in admitted])
+    finally:
+        del srv.admit       # the wrapper and the server form a reference cycle
+    return out
+
+
+def family_parity(family: str, dev) -> int:
+    """The first decode rounds of a server scenario on the card against the
+    same scenario on the CPU: tokens equal, logits within phase 7's rtol
+    2e-5 / atol 5e-5.  Returns the number of requests compared."""
+    card = server_rounds(soak_sc.server_scenario(family=family, device=dev), PARITY_ROUNDS)
+    host = server_rounds(soak_sc.server_scenario(family=family, device="cpu"),
+                         PARITY_ROUNDS)
+    for rnd, (a, b) in enumerate(zip(card, host), 1):
+        if len(a) != len(b):
+            fail(f"9c: {family} round {rnd}: {len(a)} requests on the card, {len(b)} on "
+                 f"the CPU")
+        for j, ((ta, la), (tb, lb)) in enumerate(zip(a, b)):
+            if ta != tb:
+                fail(f"9c: {family} round {rnd} request {j}: tokens {ta} != {tb}; top-2 "
+                     f"margin {top2_margin(la):.3g} / {top2_margin(lb):.3g}")
+            if (la is None) != (lb is None) or (
+                    la is not None and not np.allclose(la, lb, rtol=2e-5, atol=5e-5)):
+                fail(f"9c: {family} round {rnd} request {j}: logits differ "
+                     f"(max |d| {np.abs(la - lb).max():.3g})")
+    return len(card[-1])
+
+
+def soak_one(name: str, scen, steps: int, csv_dir: Path, launches: dict) -> dict:
+    """``run_soak`` + ``assert_flat`` at the JAX defaults; the soak's
+    launches are counted.  Garbage of earlier phases is collected first, so
+    the cycle collector frees none of it inside the soak's window."""
+    gc.collect()
+    t0 = time.time()
+    result = counted_launches(
+        lambda: run_soak(scen.step, steps=steps, name=name, gauges=scen.gauges), launches)
+    result.write_csv(str(csv_dir / f"{name}_trend.csv"))
+    try:
+        result.assert_flat()
+    except TrendViolation as e:
+        fail(f"9c: {e}")
+    progress = scen.progress()
+    res = {"steps": steps, "seconds": time.time() - t0, "summary": result.summary(),
+           "gauges": sorted(scen.gauges), "progress": progress,
+           "median_step_ms": float(np.median(result.latency)) * 1e3}
+    print(f"phase 9c: {result.summary()}; FLAT; gauges {res['gauges']}; median step "
+          f"{res['median_step_ms']:.3f} ms; {res['seconds']:.1f} s")
+    return res
+
+
+def soak_phase(dev, out_dir: Path) -> dict:
+    """Phase 9c: each scenario through run_soak + assert_flat, with the
+    acceptance floors and reconciliations of the JAX soak tests."""
+    t0 = time.time()
+    csv_dir = out_dir / "soak"
+    ckpt_dir = out_dir / "soak_ckpt"
+    for d in (csv_dir, ckpt_dir):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    launches = {k: 0 for k in TPU_KERNELS}
+    out = {}
+
+    scen = soak_sc.executor_scenario(batch=16, mobilenet_kw=MOBILENET_B2, device=dev)
+    if "exec_live_bytes" not in scen.gauges:
+        fail("9c: the executor scenario gauges no live device bytes on the card")
+    out["executor"] = soak_one("executor", scen, SOAK_STEPS["executor"], csv_dir, launches)
+    if out["executor"]["progress"]["execute_calls"] < 500:
+        fail(f"9c: executor: {out['executor']['progress']}")
+
+    scen = soak_sc.cnn_server_scenario(directory=str(ckpt_dir / "cnn_server"), device=dev)
+    out["cnn_server"] = soak_one("cnn_server", scen, SOAK_STEPS["cnn_server"], csv_dir,
+                                 launches)
+    p = scen.progress()
+    st, inj = p["stats"], p["injected"]
+    checks = {
+        "verified > 100, 0 mismatches": p["verified"] > 100 and p["mismatches"] == 0,
+        "errors injected == observed": st["exec_exceptions"] == inj["error"] > 0,
+        "NaN/Inf injected == observed": st["nonfinite_detected"] == inj["nan"] + inj["inf"]
+        and inj["nan"] > 0 and inj["latency"] > 0,
+        "retried, nothing failed": st["retries"] > 0 and st["exec_failed_batches"] == 0
+        and p["failed"] == 0,
+        "reduced-M rungs and rung 0 served": st["rung_hist"].get(0, 0) > 0
+        and sum(v for k, v in st["rung_hist"].items() if k > 0) > 0,
+        "back to rung 0, not shedding": st["rung"] == 0 and not st["shedding"],
+        "sheds at dispatch and admit": st["shed"]["deadline_expired"] > 0
+        and st["shed"]["slo_shed"] > 0,
+        "queue drained": st["queue_depth"] <= 2 * 4,
+        "reloads == memory flips": st["reloads"] == inj["bitflip_mem"] > 0
+        and st["selftest_failures"] == inj["bitflip_mem"],
+        "quarantines == disk flips": st["quarantined_steps"] == p["ckpt_quarantined"]
+        == inj["bitflip_disk"] > 0,
+        "self-tests passed too": st["selftest_runs"] > st["selftest_failures"],
+        "schedules within the ladder": len(scen.subject._schedules_seen)
+        <= len(scen.subject.controller.ladder),
+    }
+    if not all(checks.values()):
+        fail(f"9c: cnn_server reconciliation {[k for k, v in checks.items() if not v]}: {p}")
+    print(f"phase 9c: cnn_server reconciled: {list(checks)}")
+
+    scen = soak_sc.checkpoint_scenario(str(ckpt_dir / "checkpoint"), device=dev)
+    out["checkpoint"] = soak_one("checkpoint", scen, SOAK_STEPS["checkpoint"], csv_dir,
+                                 launches)
+    if out["checkpoint"]["progress"]["cycles"] < 120 or \
+            out["checkpoint"]["progress"]["ckpt_dirs"] > 2:
+        fail(f"9c: checkpoint: {out['checkpoint']['progress']}")
+
+    scen = soak_sc.server_scenario(device=dev)
+    out["server"] = soak_one("server", scen, SOAK_STEPS["server"], csv_dir, launches)
+    st = out["server"]["progress"]
+    if st["decode_steps"] < 2000 or st["bulk_prefills"] <= 100:
+        fail(f"9c: server: {st}")
+    out["server"]["parity_requests"] = family_parity("gemma_2b", dev)
+
+    for family in SOAK_FAMILIES:
+        out[family] = soak_one(f"server_{family}",
+                               soak_sc.server_scenario(family=family, device=dev),
+                               FAMILY_STEPS, csv_dir, launches)
+        out[family]["parity_requests"] = family_parity(family, dev)
+        print(f"phase 9c: {family}: the first {PARITY_ROUNDS} rounds' tokens equal and "
+              f"logits within rtol 2e-5 / atol 5e-5 of the CPU copy "
+              f"({out[family]['parity_requests']} requests)")
+    if any(v == 0 for v in launches.values()):
+        fail(f"9c: a kernel never launched in the soaks: {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.time() - t0
+    print(f"phase 9c: every soak FLAT (gauges exactly flat, live device bytes included); "
+          f"launches {launches}; trend CSVs in {csv_dir.relative_to(ROOT)}; "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
+def verify_phase(programs: dict, inputs: dict, dev, out_dir: Path) -> dict:
+    """Phase 9: fuzz (9a), lint (9b) and soak (9c)."""
+    t0 = time.time()
+    res = {"fuzz": fuzz_phase(dev), "lint": lint_phase(programs, inputs),
+           "soak": soak_phase(dev, out_dir)}
+    res["seconds"] = time.time() - t0
+    print(f"phase 9: {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -1266,6 +1549,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train = train_phase(dev, out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    verify = verify_phase(programs, inputs, dev, out_dir)
+    fuzz_launches, soak_launches = verify["fuzz"]["launches"], verify["soak"]["launches"]
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -1275,7 +1562,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (launches[name] + lm["serve"]["launches"][name]
-                         + train["cnn_a"]["launches"][name]),
+                         + train["cnn_a"]["launches"][name] + fuzz_launches[name]
+                         + soak_launches[name]),
             "max_abs_err": max(max_err[name], lm["max_abs_err"] if name == "binary_matmul"
                                else 0.0),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": max(t_bytes, t_ops),
@@ -1283,16 +1571,17 @@ def main() -> int:
             "library_ms": tot["library_ms"], "instr_ms": tot["instr_ms"],
             "cnn_launches": launches[name], "serve_launches": serve["launches"][name],
             "lm_launches": lm["serve"]["launches"][name],
-            "train_launches": train["cnn_a"]["launches"][name]})
+            "train_launches": train["cnn_a"]["launches"][name],
+            "fuzz_launches": fuzz_launches[name], "soak_launches": soak_launches[name]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
          "kernels": kernels, "layers": rows, "forward": forward, "profiles": profiles,
-         "serve": serve, "lm": lm, "train": train},
+         "serve": serve, "lm": lm, "train": train, "verify": verify},
         indent=1))
     print("timings: ms, plain_ms, library_ms and bound_ms sum one forward of CNN-A "
           "(batch 64) and one of MobileNetV1-224 (batch 16); launches counts phases 2 "
-          "and 3 (three calls of each network), phase 7's serving of gemma-2b and phase "
-          "8a's execute of the retrained CNN-A; the "
+          "and 3 (three calls of each network), phase 7's serving of gemma-2b, phase "
+          "8a's execute of the retrained CNN-A, phase 9a's fuzz and phase 9c's soaks; the "
           "LM shapes' times are under \"lm\" in chiprun_out/chip_smoke.json")
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,10 @@ tiling rules).  Each rule mirrors a check the port's launchers
 before its first launch instead of at it.  ERROR: a launcher would refuse
 the program, or run another schedule than the one frozen in it; WARN:
 legal but not what ``compile`` would have made.
+
+``TRACE_RULES`` are the rules ``trace_lint.py`` checks on what one
+``execute`` call runs, with the JAX package's ids; ``verify_program``
+never raises them.
 """
 from __future__ import annotations
 
@@ -68,4 +72,18 @@ RULES: dict[str, Rule] = {r.id: r for r in [
     Rule("stats-drift", WARN,
          "LayerStats disagree with the values re-derived from the program "
          "(out_shape, padded_in, macs, weight_bytes)"),
+]}
+
+
+TRACE_RULES: dict[str, Rule] = {r.id: r for r in [
+    Rule("trace-fp-conv", ERROR,
+         "a full-binary call ran a library conv or product op (aten "
+         "convolution / conv2d / _convolution / mm / addmm / bmm)"),
+    Rule("trace-plan-pick", ERROR,
+         "tile-plan picks ran inside the call (scheduling leaked past "
+         "compile time)"),
+    Rule("trace-f64", ERROR, "float64 values in the call (accidental promotion)"),
+    Rule("trace-retrace", ERROR,
+         "repeated identical calls picked plans, loaded kernel libraries or "
+         "launched other than one kernel per instruction"),
 ]}

@@ -30,7 +30,7 @@ from repro_torch.kernels import ops
 class Finding:
     """One verifier result: a rule id, where it fired, and why."""
 
-    rule: str        # id in hopper_rules.RULES
+    rule: str        # id in hopper_rules.RULES or TRACE_RULES
     severity: str    # ERROR | WARN
     instr: str       # instruction name ("" = program level)
     index: int       # instruction index (-1 = program level)
@@ -46,7 +46,8 @@ class ProgramVerificationError(ValueError):
 
 
 def make_finding(rule: str, instr: str, index: int, message: str) -> Finding:
-    return Finding(rule=rule, severity=hopper_rules.RULES[rule].severity,
+    spec = hopper_rules.RULES.get(rule) or hopper_rules.TRACE_RULES[rule]
+    return Finding(rule=rule, severity=spec.severity,
                    instr=instr, index=index, message=message)
 
 

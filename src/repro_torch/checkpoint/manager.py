@@ -111,47 +111,49 @@ def _children(node):
     return None
 
 
+def _walk(node, prefix: tuple, out: dict) -> None:
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out["/".join(prefix)] = node
+        return
+    for key, child in kids:
+        _walk(child, prefix + (str(key),), out)
+
+
 def _flatten_with_paths(tree):
     """``({path: leaf}, treedef)`` in flattening order.  The treedef is the
     tree itself: :func:`_unflatten` rebuilds its structure around new
-    leaves, keeping every non-tensor field of a dataclass node."""
+    leaves, keeping every non-tensor field of a dataclass node.  (The walks
+    recurse at module level: a recursive closure is a reference cycle, which
+    would keep the leaves on the device until the cycle collector ran.)"""
     out = {}
-
-    def walk(node, prefix):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out["/".join(prefix)] = node
-            return
-        for key, child in kids:
-            walk(child, prefix + (str(key),))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out, tree
+
+
+def _build(node, it):
+    if node is None:
+        return None
+    kids = _children(node)
+    if kids is None:
+        return next(it)
+    new = [_build(child, it) for _, child in kids]
+    if isinstance(node, dict):
+        return {k: v for (k, _), v in zip(kids, new)}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):   # a NamedTuple
+        return type(node)(*new)
+    if isinstance(node, (tuple, list)):
+        return type(node)(new)
+    return dataclasses.replace(node, **{f: v for (f, _), v in zip(kids, new)})
 
 
 def _unflatten(treedef, leaves):
     """``treedef`` (a tree from :func:`_flatten_with_paths`) with its leaves
     replaced, in flattening order, by ``leaves``."""
     it = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        kids = _children(node)
-        if kids is None:
-            return next(it)
-        new = [build(child) for _, child in kids]
-        if isinstance(node, dict):
-            return {k: v for (k, _), v in zip(kids, new)}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):   # a NamedTuple
-            return type(node)(*new)
-        if isinstance(node, (tuple, list)):
-            return type(node)(new)
-        return dataclasses.replace(node, **{f: v for (f, _), v in zip(kids, new)})
-
-    rebuilt = build(treedef)
+    rebuilt = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return rebuilt

@@ -11,6 +11,12 @@ CUDA kernel; on a CPU program the same loop runs the plain versions.
 ``execute_reference`` runs the loop through the plain versions wherever the
 program lives — the yardstick the tests and ``chip_smoke.py`` hold
 ``execute`` against.
+
+``cache_stats`` / ``cache_gauges`` are the counterparts of the JAX
+executor's jit-cache counters for ``testing/soak.py``.  The port has no
+jit cache, so they gauge what could grow under traffic instead: plan picks
+(``execute`` makes none), loaded kernel libraries (at most one per CUDA
+source) and, on a card, live device bytes.
 """
 from __future__ import annotations
 
@@ -18,9 +24,34 @@ import torch
 
 from repro_torch.deploy.program import (BinArrayProgram, ConvInstr, DWConvInstr,
                                         LinearInstr)
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.cnn import apply_pre
+
+
+def cache_stats(device=None) -> dict:
+    """The executor's gauges as numbers: ``plan_picks``
+    (``ops.plan_pick_count()``), ``kernel_libs`` (libraries loaded by
+    ``kernels/_build.py``), ``live_bytes`` (``torch.cuda.memory_allocated``)
+    when ``device`` is a CUDA device, and ``launches``
+    (``ops.launch_counts()``), which is progress and grows by design."""
+    out = {"plan_picks": ops.plan_pick_count(), "kernel_libs": len(_build._libs)}
+    if device is not None and torch.device(device).type == "cuda":
+        out["live_bytes"] = torch.cuda.memory_allocated(torch.device(device))
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def cache_gauges(device=None) -> dict:
+    """``name -> callable`` gauges for ``testing/soak.py``, each exactly flat
+    once a workload has seen all its variants; ``device`` as in
+    :func:`cache_stats` (live bytes are gauged on a card only)."""
+    gauges = {"exec_plan_picks": lambda: float(ops.plan_pick_count()),
+              "exec_kernel_libs": lambda: float(len(_build._libs))}
+    if device is not None and torch.device(device).type == "cuda":
+        dev = torch.device(device)
+        gauges["exec_live_bytes"] = lambda: float(torch.cuda.memory_allocated(dev))
+    return gauges
 
 
 def _apply(instr, y: torch.Tensor, m: int) -> torch.Tensor:

@@ -42,10 +42,19 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import _flatten_with_paths, _unflatten
 from repro_torch.deploy.program import BinArrayProgram
 from repro_torch.serve_cnn.slo import SLOConfig, SLOController, default_ladder
 
 SHED_REASONS = ("queue_full", "deadline_expired", "slo_shed")
+
+
+def _on_host(program: BinArrayProgram) -> BinArrayProgram:
+    """``program`` with its tensors copied to the host: a quarantined
+    program is kept for inspection without holding device memory, so a
+    storm of hot reloads does not step live device bytes up."""
+    flat, treedef = _flatten_with_paths(program)
+    return _unflatten(treedef, [t.cpu() for t in flat.values()])
 
 
 class NonFiniteOutput(RuntimeError):
@@ -154,6 +163,7 @@ class CNNService:
         self.queue: collections.deque[ImageRequest] = collections.deque()
         self._ids = itertools.count()
         self._latencies = collections.deque(maxlen=512)
+        self._schedules_seen: set[tuple[int, ...]] = set()
         self.last_batch: torch.Tensor | None = None
         self.last_schedule: tuple[int, ...] | None = None
         self._stats = {
@@ -246,7 +256,10 @@ class CNNService:
                 out = y.cpu()
                 break
             except Exception as e:  # noqa: BLE001 — disposition by contract
-                err = e
+                # keep its repr, not the exception: its traceback holds this
+                # frame, and the cycle would keep the batch and the poisoned
+                # output on the device until the cycle collector ran
+                err = repr(e)
                 name = type(e).__name__
                 self._stats["fault_types"][name] = (
                     self._stats["fault_types"].get(name, 0) + 1)
@@ -258,6 +271,7 @@ class CNNService:
 
         self._stats["batches"] += 1
         self._stats["rung_hist"][rung] = self._stats["rung_hist"].get(rung, 0) + 1
+        self._schedules_seen.add(sched)
         self.last_batch = x
         self.last_schedule = sched
 
@@ -267,7 +281,7 @@ class CNNService:
             self._stats["exec_failed_batches"] += 1
             for req in batch:
                 req.status = "failed"
-                req.error = repr(err)
+                req.error = err
                 req.rung = rung
                 finished.append(req)
         else:
@@ -323,7 +337,7 @@ class CNNService:
         checkpoint.  Loud when recovery is impossible: without a wired
         checkpoint manager the original failure propagates, and an
         exhausted walk raises ``NoGoodCheckpoint``."""
-        self.quarantined_program = self.program
+        self.quarantined_program = _on_host(self.program)
         if self.checkpoint_manager is None or self.restore_like is None:
             raise cause
         from repro_torch.deploy.compiler import load_latest_good
@@ -362,6 +376,17 @@ class CNNService:
                            f"({len(self.queue)} requests left)")
 
     # ------------------------------------------------------------ stats ---
+    def cache_gauges(self) -> dict:
+        """Flat-by-contract gauges for ``testing/soak.py``: the executor's
+        (plan picks, loaded kernel libraries, live device bytes on a card)
+        plus the service's distinct-schedule count, bounded by the ladder's
+        length (a growing value means the controller invents schedules)."""
+        from repro_torch.deploy import executor
+
+        gauges = executor.cache_gauges(self.program.device)
+        gauges["svc_schedules_seen"] = lambda: float(len(self._schedules_seen))
+        return gauges
+
     @property
     def stats(self) -> dict:
         """Counters, p50/p99 latency over a bounded window, controller

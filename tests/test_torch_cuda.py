@@ -364,3 +364,63 @@ def test_train_step_on_the_card_matches_the_cpu(card, mode):
     for a, b in zip(cm.tree_leaves(sg), cm.tree_leaves(sc)):
         scale = float(b.abs().max()) if b.numel() else 0.0
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("seed", [0, 3, 6, 11, 62, 66])
+def test_fuzz_network_on_the_card(card, seed):
+    """The JAX package's pinned fuzz seeds, plus the first draws of a 1x1
+    conv at stride 2 (62) and of pool 3 (66), compiled on the card: zero
+    verifier ERRORs, ``execute`` torch.equal to the per-call kernel path
+    (each layer with its own plan pick) and within rtol 1e-4 /
+    atol 1e-4·max|logit| of the plain path, at m_active None and 1."""
+    from repro_torch.analysis import verify_program
+    from repro_torch.testing import fuzz
+
+    net = fuzz.random_network(seed)
+    qc = QuantConfig(mode="binary", M=net.M, K_iters=2)
+    packed = cnn.spec_binarize(
+        net.specs, net.init_params(torch.Generator().manual_seed(seed), device=card), qc)
+    prog = deploy.compile(packed, net.specs, qc, net.input_shape, device=card, golden=False)
+    assert not [f for f in verify_program(prog) if f.severity == "ERROR"]
+    x = torch.randn((net.exec_batch,) + net.input_shape[1:],
+                    generator=torch.Generator().manual_seed(seed + 99)).to(card)
+    for m in (None, 1):
+        before = ops.launch_counts()
+        got = deploy.execute(prog, x, m)
+        torch.cuda.synchronize()
+        assert sum(ops.launch_counts().values()) - sum(before.values()) == len(prog)
+        assert torch.equal(got, fuzz.kernel_forward(net.specs, packed, x, m))
+        want = deploy.execute_reference(prog, x, m)
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_trace_lint_is_clean_on_the_card(card):
+    """On the card ``execute`` runs no library conv or product, makes no plan
+    pick and no float64, and repeated traffic launches one kernel per
+    instruction per call: CNN-A and MobileNetV1-224 (abstract programs, whose
+    uninitialised weights the lint never reads)."""
+    from repro_torch.analysis import trace_lint
+
+    quant = QuantConfig(mode="binary", M=2)
+    for arch, shape in (("cnn_a", (4, 48, 48, 3)), ("mobilenet", (2, 224, 224, 3))):
+        program = deploy.abstract_program(arch, quant, shape, device=card)
+        scheds = (None, 1, [1 + i % 2 for i in range(len(program))])
+        for m in scheds:
+            assert trace_lint.lint_execute(program, m_active=m) == [], (arch, m)
+        x = torch.zeros(shape, device=card)
+        assert trace_lint.retrace_findings(program, x, schedules=scheds, repeats=2) == []
+
+
+def test_executor_soak_on_the_card_has_flat_gauges(card):
+    """60 steps of the executor scenario (CNN-A and a reduced MobileNet at
+    batch 2): plan picks, loaded kernel libraries and live device bytes
+    exactly flat after warmup."""
+    from repro_torch.testing import scenarios
+    from repro_torch.testing.soak import run_soak
+
+    scen = scenarios.executor_scenario(device=card)
+    assert "exec_live_bytes" in scen.gauges
+    result = run_soak(scen.step, steps=60, name=scen.name, gauges=scen.gauges)
+    assert scen.progress()["execute_calls"] == 60
+    assert {n: result.gauge_growth(n) for n in scen.gauges} == {n: 0.0 for n in scen.gauges}
