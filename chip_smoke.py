@@ -96,7 +96,32 @@ source, all at once) and runs, each phase failing loudly:
      gemma-2b (1100 steps, >= 2000 decode steps) and on reduced
      h2o-danube, qwen3 and codeqwen (200 steps each), each server's first
      4 rounds equal to the same scenario on the CPU (tokens; logits within
-     rtol 2e-5 / atol 5e-5).  Trend CSVs go to ``chiprun_out/soak/``.
+     rtol 2e-5 / atol 5e-5).  Trend CSVs go to ``chiprun_out/soak/``;
+ 10. the MoE family at published widths, cut in depth only, fp32, M=2
+     (K_iters 8), weights drawn on the card and each layer binarized as
+     drawn (the routed expert banks stay fp32, as in the JAX package):
+     (a) DeepSeek-V3 with its 3 leading dense layers and 1 MoE layer (MLA
+     with q-LoRA, 256 routed experts top-8 + 1 shared, vocab 129280, the
+     MTP head built): the matmul kernel against its plain version at its 9
+     linear shapes and phase 7's row counts; the full-width MoE layer
+     against a plain per-token reference (a 64-token prefill and an 8-row
+     decode: expert ids equal, the same dropped picks, rtol 1e-4 /
+     atol 1e-4·max|y|); the 3 dense layers on the card against a CPU copy
+     (prefill of 16 tokens + 2 decode steps); ``Server`` serving phase 7's
+     8 requests with 28 matmul launches per admission and per decode group
+     step, a second run giving the same tokens and bit-equal logits;
+     admission of 64 tokens, the decode step at 8 slots beside its bytes
+     bound, a profiler window of 3 decode steps
+     (``chiprun_out/trace_deepseek.json``: idle share, the matmul kernel,
+     the routed-expert and absorbed-MLA ``bmm``s, the LM head); (b) grok-1
+     with 2 MoE layers (8 experts top-2 at 32768, GQA 48/8): the kernel at
+     its 2 attention shapes, ``Server`` with 8 launches per pass, the
+     timed decode step and its bound; (c) reduced DeepSeek-V3 and grok-1
+     (binary M=2) served on the card against a CPU copy for 4 rounds of 8
+     mixed-mode requests (tokens equal, logits within rtol 2e-5 /
+     atol 5e-5, every MoE call's expert ids equal), and one fake-quant
+     ``build_train_step`` step of reduced DeepSeek-V3 against the CPU
+     (loss, ce_loss, load_balance_loss, mtp_loss within rtol 1e-5).
 
 Weights are random, drawn from a seeded generator.  The logits of phases 2
 and 3 are compared with rtol 1e-4 and atol 1e-4·max|logit| (a relative
@@ -104,13 +129,14 @@ floor: the reference's random MobileNet init shrinks activations to ~1e-13
 by the head, and 28 layers of fp32 sums run in another order on each side).
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` counts the main
-paths of phases 2, 3, 7, 8a, 9a and 9c, ``cnn_launches`` phases 2-3,
+paths of phases 2, 3, 7, 8a, 9a, 9c and 10, ``cnn_launches`` phases 2-3,
 ``serve_launches`` phase 6, ``lm_launches`` phase 7's serving,
 ``train_launches`` phase 8a's execute, ``fuzz_launches`` phase 9a's
-``execute`` calls and ``soak_launches`` phase 9c's soaks), nvidia-smi's
-line, and last ``{"ok": true, "device": {...}}``; per-instruction numbers
-go to ``chiprun_out/chip_smoke.json``, phase 7's under ``"lm"``, phase 8's
-under ``"train"``, phase 9's under ``"verify"``.  Exits non-zero, printing no result,
+``execute`` calls, ``soak_launches`` phase 9c's soaks and
+``moe_launches`` phase 10's serving), nvidia-smi's line, and last
+``{"ok": true, "device": {...}}``; per-instruction numbers go to
+``chiprun_out/chip_smoke.json``, phase 7's under ``"lm"``, phase 8's under
+``"train"``, phase 9's under ``"verify"``, phase 10's under ``"moe"``.  Exits non-zero, printing no result,
 without a card or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
@@ -148,6 +174,7 @@ try:
     from repro_torch.kernels import ref as kref
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import api, common as cm, transformer as tf
+    from repro_torch.models import moe as moe_mod
     from repro_torch.kernels.binary_conv import unpack_taps
     from repro_torch.kernels.binary_dwconv import unpack_dw_taps
     from repro_torch.models import cnn
@@ -705,18 +732,17 @@ def lm_rows(cfg, params) -> list[int]:
                    *(srv._padded_len(r.prompt.size - 1) for r in reqs)})
 
 
-def check_lm_kernels(cfg, params, gen: torch.Generator, dev) -> float:
-    """Phase 7: the matmul kernel against its plain version at every LM
-    linear shape and every row count of ``lm_rows``, m_active 1 and 2; the
-    second plan must give the same bits."""
+def check_linear_kernels(where: str, weights: dict, rows: list, gen: torch.Generator,
+                         dev) -> float:
+    """The matmul kernel against its plain version for each packed linear of
+    ``weights`` (name -> {B_packed, alpha}) at every row count of ``rows``,
+    m_active 1 and 2; the second plan must give the same bits."""
     max_err, checks = 0.0, 0
-    rows = lm_rows(cfg, params)
-    for name in LM_LINEARS:
-        p = lm_weight(params, name)
+    for name, p in weights.items():
         K, N = p["B_packed"].shape[1] * 8, p["B_packed"].shape[2]
         for T in rows:
             if ops.pick_matmul_plan(T, N) == ALT_PLAN["linear"]:
-                fail(f"LM {name} T={T}: the picked plan is the second plan")
+                fail(f"{where} {name} T={T}: the picked plan is the second plan")
             x = torch.randn(T, K, generator=gen).to(dev)
             for m in (1, 2):
                 kw = dict(K=K, group_size=K, m_active=m)
@@ -727,14 +753,22 @@ def check_lm_kernels(cfg, params, gen: torch.Generator, dev) -> float:
                 err = float((got - want).abs().max())
                 max_err = max(max_err, err)
                 if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
-                    fail(f"LM {name} T={T} m={m}: kernel vs plain max |d| {err:.3g}")
+                    fail(f"{where} {name} T={T} m={m}: kernel vs plain max |d| {err:.3g}")
                 if not torch.equal(got, alt):
-                    fail(f"LM {name} T={T} m={m}: plans differ")
+                    fail(f"{where} {name} T={T} m={m}: plans differ")
                 checks += 1
     torch.cuda.synchronize()
-    print(f"phase 7: {checks} LM-shape kernel-vs-plain checks at T = {rows} passed (rtol "
-          f"{RTOL}, atol {ATOL}), second plan bit-identical; max |d| {max_err:.3g}")
+    print(f"{where}: {checks} kernel-vs-plain checks at {len(weights)} linear shapes, T = "
+          f"{rows} passed (rtol {RTOL}, atol {ATOL}), second plan bit-identical; max |d| "
+          f"{max_err:.3g}")
     return max_err
+
+
+def check_lm_kernels(cfg, params, gen: torch.Generator, dev) -> float:
+    """Phase 7: the matmul kernel against its plain version at every LM
+    linear shape and every row count of ``lm_rows``."""
+    return check_linear_kernels("phase 7", {n: lm_weight(params, n) for n in LM_LINEARS},
+                                lm_rows(cfg, params), gen, dev)
 
 
 def top2_margin(logits: np.ndarray) -> float:
@@ -830,30 +864,26 @@ def serve_lm(cfg, params, dev) -> dict:
             "out_tokens": [r.out_tokens for r in reqs]}
 
 
-def lm_card_vs_plain(cfg, params, dev) -> dict:
-    """Phase 7: the card against the plain versions, the same weights cut to
-    2 layers at full width: prefill of 16 tokens and 2 decode steps, the
-    port's functions on the card and on a CPU copy of the params."""
-    cfg2 = cfg.replace(n_layers=2)
-    card = {"embed": params["embed"], "final_norm": params["final_norm"],
-            "layers": cm.tree_map(lambda t: t[:2], params["layers"])}
+def card_vs_plain(where: str, cfg, card: dict, n_prompt: int = 16) -> float:
+    """The card against the plain versions: prefill of ``n_prompt`` tokens
+    and 2 decode steps through the port's functions on ``card`` and on a CPU
+    copy of it; logits and every cache leaf within rtol 1e-4 /
+    atol 1e-4·max|x|.  Returns the worst max|d|/max|x|."""
     host = cm.tree_map(lambda t: t.cpu(), card)
     rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 16)).astype(np.int64))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n_prompt)).astype(np.int64))
     steps = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1, 1)).astype(np.int64))
     outs = {}
-    for where, p in (("card", card), ("plain", host)):
+    for side, p in (("card", card), ("plain", host)):
         d = p["embed"]["table"].device
-        logits, cache = api.prefill(cfg2, p, toks.to(d), max_len=32)
+        logits, cache = api.prefill(cfg, p, toks.to(d), max_len=32)
         got = [logits.cpu()]
         for i in range(2):
-            pos = torch.full((1,), 16 + i, dtype=torch.int32, device=d)
-            lg, cache = api.decode_step(cfg2, p, {"tokens": steps[i].to(d), "pos": pos,
-                                                  "cache": cache})
+            pos = torch.full((1,), n_prompt + i, dtype=torch.int32, device=d)
+            lg, cache = api.decode_step(cfg, p, {"tokens": steps[i].to(d), "pos": pos,
+                                                 "cache": cache})
             got.append(lg.cpu())
-        leaves = []
-        cm.tree_map(lambda t: leaves.append(t.cpu()), cache)
-        outs[where] = (got, leaves)
+        outs[side] = (got, [t.cpu() for t in cm.tree_leaves(cache)])
     worst = 0.0
     for what, a, b in [("logits", x, y) for x, y in zip(outs["card"][0], outs["plain"][0])] \
             + [("cache", x, y) for x, y in zip(outs["card"][1], outs["plain"][1])]:
@@ -862,17 +892,26 @@ def lm_card_vs_plain(cfg, params, dev) -> dict:
         worst = max(worst, err / max(scale, 1e-30))
         if not torch.isfinite(a).all() or scale == 0.0 or \
                 not torch.allclose(a, b, rtol=1e-4, atol=1e-4 * scale):
-            fail(f"LM card vs plain ({what}): max |d| {err:.3g}, max |plain| {scale:.3g}")
+            fail(f"{where} card vs plain ({what}): max |d| {err:.3g}, max |plain| {scale:.3g}")
+    return worst
+
+
+def lm_card_vs_plain(cfg, params, dev) -> dict:
+    """Phase 7: the card against the plain versions, the same weights cut to
+    2 layers at full width."""
+    card = {"embed": params["embed"], "final_norm": params["final_norm"],
+            "layers": cm.tree_map(lambda t: t[:2], params["layers"])}
+    worst = card_vs_plain("LM", cfg.replace(n_layers=2), card)
     print(f"phase 7: 2 layers at full width, prefill of 16 tokens + 2 decode steps: card "
           f"within rtol 1e-4 / atol 1e-4·max|x| of the plain versions on the CPU (logits and "
           f"every cache leaf); worst max|d|/max|x| {worst:.3g}")
     return {"worst_rel_err": worst}
 
 
-def lm_timing(cfg, params, gen: torch.Generator, dev, out_dir: Path) -> dict:
-    """Phase 7 timings: admission of a 64-token prompt, a decode step at 8
-    active slots, a profiler window of 3 decode steps, and the LM linears
-    one by one (``time_lm_linears``)."""
+def decode_timing(where: str, cfg, params) -> tuple[dict, Server]:
+    """Admission of a 64-token prompt and a decode step at 8 active slots
+    (host clock and CUDA events); returns the numbers and the server, its 8
+    slots still active."""
     rng = np.random.default_rng(2)
     srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
     prompt = rng.integers(0, cfg.vocab, LM_BUCKET).astype(np.int32)
@@ -910,11 +949,19 @@ def lm_timing(cfg, params, gen: torch.Generator, dev, out_dir: Path) -> dict:
             "decode_step_events_ms": statistics.median(dev_ms),
             "decode_steps_host_ms": host_ms, "plan_picks_per_decode_step": picks}
     step["tokens_per_s"] = LM_BATCH / step["decode_step_host_ms"] * 1e3
-    print(f"phase 7: admission of a {LM_BUCKET}-token prompt (prefill at bucket "
+    print(f"{where}: admission of a {LM_BUCKET}-token prompt (prefill at bucket "
           f"{srv._padded_len(LM_BUCKET - 1)} + scatter) median {step['admit_64_ms']:.3f} ms; "
           f"decode step at {LM_BATCH} active slots median {step['decode_step_host_ms']:.3f} ms "
           f"host clock, {step['decode_step_events_ms']:.3f} ms CUDA events "
           f"({step['tokens_per_s']:.1f} tokens/s); {picks} plan picks per step")
+    return step, srv
+
+
+def lm_timing(cfg, params, gen: torch.Generator, dev, out_dir: Path) -> dict:
+    """Phase 7 timings: admission of a 64-token prompt, a decode step at 8
+    active slots, a profiler window of 3 decode steps, and the LM linears
+    one by one (``time_lm_linears``)."""
+    step, srv = decode_timing("phase 7", cfg, params)
 
     from torch.profiler import ProfilerActivity, profile, schedule
     path = out_dir / "trace_gemma.json"
@@ -941,13 +988,12 @@ def lm_timing(cfg, params, gen: torch.Generator, dev, out_dir: Path) -> dict:
     return {**step, "profile": split, "linears": time_lm_linears(params, gen, dev)}
 
 
-def time_lm_linears(params, gen: torch.Generator, dev) -> list:
-    """Per LM linear shape at T = 8 (decode) and 64 (the prefill bucket),
-    m_active 2: the kernel, its plain version and ``x @ W_hat`` (CUDA graphs)
-    and the bound."""
+def time_linears(where: str, weights: dict, gen: torch.Generator, dev) -> list:
+    """Per packed linear of ``weights`` at T = 8 (decode) and 64 (the
+    prefill bucket), m_active 2: the kernel, its plain version and
+    ``x @ W_hat`` (CUDA graphs) and the bound."""
     rows = []
-    for name in LM_LINEARS:
-        p = lm_weight(params, name)
+    for name, p in weights.items():
         K, N = p["B_packed"].shape[1] * 8, p["B_packed"].shape[2]
         W_hat = bz.reconstruct(bz.BinApprox(bz.unpack_bits(p["B_packed"], K), p["alpha"], K))
         for T in (LM_BATCH, LM_BUCKET):
@@ -966,10 +1012,16 @@ def time_lm_linears(params, gen: torch.Generator, dev) -> list:
                          "bound_ms": max(t_bytes, t_ops),
                          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                          "bytes": nbytes, "flops": flops})
-            print(f"  LM {name} T={T} plan {tuple(rows[-1]['plan'])}: kernel {ms:.5f} ms, "
+            print(f"  {where} {name} T={T} plan {tuple(rows[-1]['plan'])}: kernel {ms:.5f} ms, "
                   f"plain {plain_ms:.5f} ms, x @ W_hat {lib_ms:.5f} ms, bound "
                   f"{rows[-1]['bound_ms']:.5f} ms ({rows[-1]['bound_by']})")
+        del W_hat
     return rows
+
+
+def time_lm_linears(params, gen: torch.Generator, dev) -> list:
+    """Phase 7's LM linear shapes through ``time_linears``."""
+    return time_linears("LM", {n: lm_weight(params, n) for n in LM_LINEARS}, gen, dev)
 
 
 def lm_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
@@ -1476,6 +1528,497 @@ def verify_phase(programs: dict, inputs: dict, dev, out_dir: Path) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the MoE family (DeepSeek-V3, grok-1)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("deepseek_v3_671b", "grok_1_314b")
+MOE_DEPTH = {"deepseek_v3_671b": 4, "grok_1_314b": 2}  # DeepSeek: 3 leading dense + 1 MoE
+MOE_LINEARS = {  # arch -> label -> the path of one packed linear of that shape
+    "deepseek_v3_671b": {
+        "wdq": ("layers", "attn", "wdq"), "wuq": ("layers", "attn", "wuq"),
+        "wdkv": ("layers", "attn", "wdkv"), "wo": ("layers", "attn", "wo"),
+        "dense gate/up": ("dense_layers", "ffn", "w_gate"),
+        "dense down": ("dense_layers", "ffn", "w_down"),
+        "shared gate/up": ("layers", "moe", "shared", "w_gate"),
+        "shared down": ("layers", "moe", "shared", "w_down"),
+        "mtp proj": ("mtp", "proj")},
+    "grok_1_314b": {"q/o": ("layers", "attn", "wq"), "k/v": ("layers", "attn", "wk")},
+}
+MOE_MATMULS_PER_PASS = {  # matmul launches per admission and per decode group step
+    "deepseek_v3_671b": 4 * (4 + 3),   # MLA wdq/wuq/wdkv/wo + dense or shared gate/up/down
+    "grok_1_314b": 2 * 4}              # q/k/v/o; the routed experts run no packed linear
+MOE_PARITY_ROUNDS = 4
+
+
+def moe_config(name: str):
+    """The published widths, cut in depth only, fp32, M=2 binary linears."""
+    return get_config(name).replace(n_layers=MOE_DEPTH[name], dtype="float32",
+                                    quant=QuantConfig(mode="binary", M=2, K_iters=8))
+
+
+def stacked_layers(gen: torch.Generator, cfg, n: int, kind: str, dev) -> tuple[dict, float]:
+    """``n`` layers drawn and binarized one at a time into ``[n, ...]``
+    leaves, and the seconds binarize took.  A one-layer stack is a view of
+    its layer; a longer one is allocated once and filled, since two copies
+    of a full-width expert bank do not fit on the card."""
+    stack, bin_s = None, 0.0
+    for i in range(n):
+        fp = tf.init_layer(gen, cfg, kind=kind, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        layer = api.binarize_model_params(cfg, fp)
+        torch.cuda.synchronize()
+        bin_s += time.perf_counter() - t1
+        del fp
+        if n == 1:
+            return cm.tree_map(lambda t: t.unsqueeze(0), layer), bin_s
+        if stack is None:
+            stack = cm.tree_map(lambda t: t.new_empty((n, *t.shape)), layer)
+        cm.tree_map(lambda s, t: s[i].copy_(t), stack, layer)
+        del layer
+    return stack, bin_s
+
+
+def build_moe_lm(cfg, dev) -> tuple[dict, dict]:
+    """Phase 10: the weights drawn on the card from a seeded generator,
+    each layer binarized as soon as it is drawn (the routed expert banks
+    stay fp32, as the JAX package leaves them), the MTP head too."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dt = cfg.torch_dtype
+    params = {"embed": cm.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device=dev)}
+    bin_s = 0.0
+    if cfg.n_dense_layers:
+        params["dense_layers"], s = stacked_layers(gen, cfg, cfg.n_dense_layers, "dense", dev)
+        bin_s += s
+    params["layers"], s = stacked_layers(gen, cfg, cfg.n_layers - cfg.n_dense_layers, "moe",
+                                         dev)
+    bin_s += s
+    params["final_norm"] = cm.init_rmsnorm(cfg.d_model, dt, device=dev)
+    if not cfg.tie_embeddings:
+        params["unembed"] = cm.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device=dev)
+    if cfg.mtp_depth:
+        params["mtp"] = api.binarize_model_params(cfg, {
+            "proj": cm.init_linear(gen, 2 * cfg.d_model, cfg.d_model, dt, device=dev),
+            "layer": tf.init_layer(gen, cfg, kind="dense", device=dev),
+            "norm": cm.init_rmsnorm(cfg.d_model, dt, device=dev)})
+    torch.cuda.synchronize()
+    leaves = cm.tree_leaves(params)
+    moe = params["layers"]["moe"]
+    info = {"build_s": time.perf_counter() - t0, "binarize_s": bin_s,
+            "params": api.count_params(cfg),
+            "active_params": api.count_params(cfg, active_only=True),
+            "routed_expert_gb": sum(moe[k].numel() * moe[k].element_size()
+                                    for k in ("w_gate", "w_up", "w_down")) / 1e9,
+            "tables_gb": sum(params[k]["table"].numel() * 4 for k in ("embed", "unembed")
+                             if k in params) / 1e9,
+            "packed_gb": sum(t.numel() for t in leaves if t.dtype == torch.uint8) / 1e9,
+            "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"phase 10: {cfg.name} {cfg.n_layers} layers ({cfg.n_dense_layers} dense), d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k} at {cfg.d_ff_expert}, "
+          f"vocab {cfg.vocab}: {info['params']:,} params ({info['active_params']:,} active); "
+          f"built in {info['build_s']:.2f} s, of which binarize {bin_s:.2f} s; routed experts "
+          f"{info['routed_expert_gb']:.2f} GB fp32, tables {info['tables_gb']:.2f} GB, packed "
+          f"{info['packed_gb']:.3f} GB; card memory in use {info['memory_allocated_gb']:.2f} GB "
+          f"(peak {info['max_memory_allocated_gb']:.2f} GB)")
+    return params, info
+
+
+def moe_weights(name: str, params) -> dict:
+    """One packed linear of each of the config's shapes, labelled K->N."""
+    out = {}
+    for label, path in MOE_LINEARS[name].items():
+        p = params
+        for k in path:
+            p = p[k]
+        if p["B_packed"].ndim == 4:       # a stacked layer: its first entry
+            p = cm.tree_index(p, 0)
+        out[f"{label} {p['B_packed'].shape[1] * 8}->{p['B_packed'].shape[2]}"] = p
+    return out
+
+
+@contextlib.contextmanager
+def recording_moe(into: list):
+    """Within the block, each ``moe_ffn`` call appends whether it decoded,
+    the router's expert ids (recomputed by ``moe.route``, no kernel) and
+    its ``dropped_frac``, all left on the device."""
+    real = moe_mod.moe_ffn
+
+    def wrapped(params, x, cfg):
+        y, aux = real(params, x, cfg)
+        into.append({"decode": x.shape[1] == 1, "ids": moe_mod.route(params, x, cfg)[2],
+                     "dropped_frac": aux["dropped_frac"]})
+        return y, aux
+
+    moe_mod.moe_ffn = wrapped
+    try:
+        yield into
+    finally:
+        moe_mod.moe_ffn = real
+
+
+def moe_per_token(p: dict, x: torch.Tensor, cfg) -> tuple:
+    """The plain reference of a MoE layer, used by no path of the port: the
+    router in fp32, then the tokens walked in order (decode: the B rows as
+    one group), each pick's rank in its expert replayed, each kept (token,
+    expert) pair's SwiGLU computed directly in fp32, and the shared expert
+    through the plain binary matmul.  Returns (y, expert ids [G, Sg, k],
+    dropped picks, picks)."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    G, Sg = (1, B) if S == 1 else (B, S)
+    xg = x.reshape(G, Sg, D).to(torch.float32)
+    probs = torch.softmax(xg @ p["router"]["w"], dim=-1)
+    gates, ids = torch.topk(probs, k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    capacity = max(1, int(cfg.capacity_factor * Sg * k / E))
+    y = torch.zeros_like(xg)
+    dropped = 0
+    for g, rows in enumerate(ids.cpu().tolist()):
+        taken = [0] * E
+        for t, picks in enumerate(rows):
+            for j, e in enumerate(picks):
+                taken[e] += 1
+                if taken[e] > capacity:
+                    dropped += 1
+                    continue
+                xt = xg[g, t]
+                h = F.silu(xt @ p["w_gate"][e]) * (xt @ p["w_up"][e])
+                y[g, t] += gates[g, t, j] * (h @ p["w_down"][e])
+    if "shared" in p:
+        def lin(q, v):
+            K = v.shape[-1]
+            return kref.binary_matmul_ref(v, q["B_packed"], q["alpha"], K=K,
+                                          group_size=K // q["alpha"].shape[1])
+
+        sh = p["shared"]
+        y += lin(sh["w_down"], F.silu(lin(sh["w_gate"], xg)) * lin(sh["w_up"], xg))
+    return y.reshape(B, S, D), ids, dropped, G * Sg * k
+
+
+def topk_margin(probs: torch.Tensor, k: int) -> float:
+    """The least gap between the k-th and (k+1)-th router probability."""
+    top = torch.topk(probs, k + 1, dim=-1).values
+    return float((top[..., k - 1] - top[..., k]).min())
+
+
+def moe_vs_reference(cfg, params, gen: torch.Generator, dev) -> dict:
+    """Phase 10a check 2: the full-width MoE layer on the card against
+    ``moe_per_token`` for a 64-token prefill and an 8-row decode: expert ids
+    equal, the same dropped picks, outputs within rtol 1e-4 /
+    atol 1e-4·max|y|."""
+    p = cm.tree_index(params["layers"]["moe"], 0)
+    out = {}
+    for what, shape in (("prefill", (1, LM_BUCKET, cfg.d_model)),
+                        ("decode", (LM_BATCH, 1, cfg.d_model))):
+        x = torch.randn(shape, generator=gen).to(dev)
+        got, aux = moe_mod.moe_ffn(p, x, cfg)
+        probs, _, ids = moe_mod.route(p, x, cfg)
+        want, want_ids, dropped, picks = moe_per_token(p, x, cfg)
+        if not torch.equal(ids, want_ids):
+            fail(f"10a {what}: expert ids differ from the reference's at "
+                 f"{int((ids != want_ids).sum())} picks; least top-{cfg.top_k} margin "
+                 f"{topk_margin(probs, cfg.top_k):.3g}")
+        port_dropped = round(float(aux["dropped_frac"]) * picks)
+        if port_dropped != dropped:
+            fail(f"10a {what}: {port_dropped} picks dropped, the reference drops {dropped}")
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not bool(torch.isfinite(got).all()) or \
+                not torch.allclose(got, want, rtol=1e-4, atol=1e-4 * scale):
+            fail(f"10a {what}: MoE layer vs per-token reference max |d| {err:.3g} "
+                 f"(max |y| {scale:.3g})")
+        out[what] = {"tokens": shape[0] * shape[1], "picks": picks, "dropped": dropped,
+                     "dropped_frac": dropped / picks, "max_abs_err": err, "max_abs_y": scale,
+                     "topk_margin": topk_margin(probs, cfg.top_k)}
+        print(f"phase 10: MoE layer at full width, {what} of {out[what]['tokens']} tokens: "
+              f"expert ids equal to the per-token reference, {dropped} of {picks} picks "
+              f"dropped on both sides (dropped_frac {dropped / picks:.4f}), max |d| {err:.3g} "
+              f"of max |y| {scale:.3g}; least top-k margin {out[what]['topk_margin']:.3g}")
+    return out
+
+
+def moe_card_vs_plain(cfg, params) -> dict:
+    """Phase 10a check 3: the 3 leading dense layers (MLA + dense FFN) at
+    full width, as the main stack of a 3-layer model, on the card against
+    the plain versions on a CPU copy."""
+    cfg3 = cfg.replace(n_layers=cfg.n_dense_layers, n_dense_layers=0, mtp_depth=0)
+    card = {k: params[k] for k in ("embed", "unembed", "final_norm")}
+    card["layers"] = params["dense_layers"]
+    worst = card_vs_plain("10a", cfg3, card)
+    print(f"phase 10: {cfg3.n_layers} dense MLA layers at full width, prefill of 16 tokens + 2 "
+          f"decode steps: card within rtol 1e-4 / atol 1e-4·max|x| of the plain versions on "
+          f"the CPU (logits, every c_kv/k_rope leaf); worst max|d|/max|x| {worst:.3g}")
+    return {"worst_rel_err": worst}
+
+
+def serve_moe(cfg, params, per_pass: int) -> dict:
+    """Phase 10's main path: 8 requests through ``Server`` until done, the
+    launch counts set to 0 just before each admission and each step and
+    read just after (``per_pass`` matmul launches per admission and per
+    decode group step); then the same requests again on a fresh server:
+    the same tokens and bit-equal logits."""
+    def run(launches: dict | None):
+        reqs = lm_requests(cfg)
+        srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
+        routes, rounds = [], 0
+
+        def counted(fn, passes):
+            ops.reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            n = ops.launch_counts()
+            if launches is None:
+                return
+            if n["binary_matmul"] != passes() * per_pass or n["binary_conv"] \
+                    or n["binary_dwconv"]:
+                fail(f"10 serve {cfg.name}: launches {n}, want {passes()} x {per_pass} "
+                     f"matmul launches")
+            for k, v in n.items():
+                launches[k] += v
+
+        with recording_moe(routes):
+            for r in reqs:
+                counted(lambda: srv.admit(r) or fail("10 serve: admission refused"),
+                        lambda: 1)
+            while any(s is not None for s in srv.slots):
+                before = srv.stats["decode_steps"]
+                counted(srv.step, lambda: srv.stats["decode_steps"] - before)
+                rounds += 1
+        return reqs, srv, routes, rounds
+
+    launches = {k: 0 for k in TPU_KERNELS}
+    t0 = time.perf_counter()
+    reqs, srv, routes, rounds = run(launches)
+    serve_s = time.perf_counter() - t0
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != LM_NEW or r.last_logits.shape != (cfg.vocab,) \
+                or not np.isfinite(r.last_logits).all() \
+                or not all(0 <= t < cfg.vocab for t in r.out_tokens):
+            fail(f"10 serve {cfg.name}: request of {r.prompt.size} tokens ended with "
+                 f"{r.out_tokens}")
+    again = run(None)[0]
+    for a, b in zip(reqs, again):
+        if a.out_tokens != b.out_tokens or not np.array_equal(a.last_logits, b.last_logits):
+            fail(f"10 serve {cfg.name}: a second run differs: {a.out_tokens} / {b.out_tokens}")
+    drop = {w: [float(c["dropped_frac"]) for c in routes if c["decode"] == (w == "decode")]
+            for w in ("prefill", "decode")}
+    res = {"stats": srv.stats, "rounds": rounds, "serve_s": serve_s, "launches": launches,
+           "per_pass": per_pass, "prompt_lens": [int(r.prompt.size) for r in reqs],
+           "out_tokens": [r.out_tokens for r in reqs], "moe_calls": len(routes),
+           "dropped_frac": {w: {"mean": statistics.mean(v), "min": min(v), "max": max(v)}
+                            for w, v in drop.items()}}
+    print(f"phase 10: {cfg.name} served {len(reqs)} requests (prompts {res['prompt_lens']}, "
+          f"m_active None/1/per-layer) in {rounds} rounds, {serve_s:.2f} s; stats "
+          f"{srv.stats}; {per_pass} matmul launches per admission and per decode group step; "
+          f"dropped_frac at prefill {res['dropped_frac']['prefill']}, at decode "
+          f"{res['dropped_frac']['decode']}; a second run gave the same tokens and bit-equal "
+          f"logits")
+    return res
+
+
+def op_device_us(prof, op: str, pred) -> float:
+    """Device time of the profiled ``op`` calls whose input shapes satisfy
+    ``pred``."""
+    return sum(e.device_time_total for e in prof.key_averages(group_by_input_shape=True)
+               if e.key == op and pred([tuple(s) for s in e.input_shapes if s]))
+
+
+def decode_step_work(cfg, params, srv) -> dict:
+    """Bytes and operations one decode step at 8 slots must move and do:
+    every weight it reads once (the whole routed bank: each expert gets a
+    slot at capacity 1 or more), the 8 embedding rows, the caches read and
+    the logits written; operations 2 per MAC of the linears at 8 tokens
+    (packed ones fp-equivalent), of the routed experts at E x capacity
+    rows, of the attention over the whole cache and of the LM head."""
+    B, E, k = LM_BATCH, cfg.n_experts, cfg.top_k
+    capacity = max(1, int(cfg.capacity_factor * B * k / E))
+    serving = {key: v for key, v in params.items() if key not in ("embed", "mtp")}
+    nbytes = sum(t.numel() * t.element_size() for t in cm.tree_leaves(serving))
+    nbytes += B * cfg.d_model * 4 + sum(t.numel() * t.element_size()
+                                        for t in cm.tree_leaves(srv.cache))
+    nbytes += B * cfg.vocab * 4
+    macs = 0
+    for t in cm.tree_leaves(serving):
+        if t.dtype == torch.uint8:             # packed [L, M, K/8, N]: fp-equivalent MACs
+            macs += B * t[:, 0].numel() * 8
+    moe = params["layers"]["moe"]
+    macs += E * capacity * sum(moe[w][:, 0].numel() for w in ("w_gate", "w_up", "w_down"))
+    macs += B * cfg.vocab * cfg.d_model
+    W, H = LM_LEN, cfg.n_heads              # attention over the whole cache, masked
+    if cfg.use_mla:
+        rank, qk, r, vd = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        per_layer = B * H * (qk * rank + W * (2 * rank + r) + rank * vd)
+    else:
+        per_layer = 2 * B * H * cfg.resolved_head_dim * W
+    macs += cfg.n_layers * per_layer
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * macs / FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": 2 * macs, "capacity": capacity,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations"}
+
+
+def moe_timing(cfg, params, dev, out_dir: Path, profile_name: str | None) -> dict:
+    """Phase 10 timings: admission of a 64-token prompt, a decode step at 8
+    slots beside its bound, and (``profile_name``) a profiler window of 3
+    decode steps: device busy, idle share, and the device time of the
+    matmul kernel, the routed-expert products, the absorbed MLA products
+    and the LM head."""
+    step, srv = decode_timing("phase 10", cfg, params)
+    work = decode_step_work(cfg, params, srv)
+    step["work"] = work
+    print(f"phase 10: {cfg.name} decode step bound {work['bound_ms']:.3f} ms "
+          f"({work['bound_by']}: {work['bytes'] / 1e9:.2f} GB, {work['flops'] / 1e9:.1f} "
+          f"GFLOP, capacity {work['capacity']} per expert) against "
+          f"{step['decode_step_events_ms']:.3f} ms (CUDA events)")
+    if profile_name is None:
+        return step
+    from torch.profiler import ProfilerActivity, profile, schedule
+    path = out_dir / f"trace_{profile_name}.json"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=3, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
+        for _ in range(4):
+            srv.step()
+            torch.cuda.synchronize()
+            prof.step()
+    split = device_split(json.loads(path.read_text())["traceEvents"])
+    E, D, rank = cfg.n_experts, cfg.d_model, cfg.kv_lora_rank
+    parts = {
+        "binary_matmul": sum(us for n, us in split["device_us_by_name"].items()
+                             if "binary_matmul" in n),
+        "routed_experts": op_device_us(prof, "aten::bmm", lambda ss: any(
+            s[0] == E and D in s[1:] for s in ss)),
+        "absorbed_mla": op_device_us(prof, "aten::bmm", lambda ss: any(
+            rank in s for s in ss) and not any(s[0] == E for s in ss)),
+        "lm_head": op_device_us(prof, "aten::mm", lambda ss: any(cfg.vocab in s for s in ss))}
+    if parts["binary_matmul"] == 0 or parts["lm_head"] == 0:
+        fail(f"10 profile: device time by part {parts}")
+    split.update({f"{k}_us_per_step": v / 3 for k, v in parts.items()})
+    print(f"phase 10: profiler over 3 decode steps: window {split['window_us'] / 3e3:.4f} ms "
+          f"per step, device busy {split['busy_us'] / 3e3:.4f} ms, idle share "
+          f"{split['idle_share']:.4f}; per step: " + ", ".join(
+              f"{k} {v / 3e3:.4f} ms" for k, v in parts.items()) +
+          f"; trace {path.relative_to(ROOT)}")
+    for name, us in list(split["device_us_by_name"].items())[:10]:
+        print(f"  {us / 3e3:.5f} ms per step  {name[:110]}")
+    return {**step, "profile": split}
+
+
+def reduced_moe_parity(name: str, dev) -> dict:
+    """Phase 10c: ``reduced(name)`` in fp32 with M=2 binary linears served on
+    the card and on a CPU copy: 8 requests (m_active None, 1, per layer, 2)
+    through ``Server(max_batch=4)``, the first 4 rounds' tokens equal,
+    logits within rtol 2e-5 / atol 5e-5, every MoE call's expert ids
+    equal."""
+    cfg = reduced(get_config(name)).replace(dtype="float32",
+                                            quant=QuantConfig(mode="binary", M=2, K_iters=2))
+    host = api.binarize_model_params(
+        cfg, api.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(3, 12, 8)]
+    modes = [None, 1, tuple(1 + i % 2 for i in range(cfg.n_layers)), 2] * 2
+    sides = {}
+    for side, params in (("card", cm.tree_map(lambda t: t.to(dev), host)), ("cpu", host)):
+        srv = Server(cfg, params, max_batch=4, max_len=32)
+        reqs = [Request(prompt=p, max_new_tokens=2, m_active=m) for p, m in zip(prompts, modes)]
+        pending, rounds, routes = list(reqs), [], []
+        with recording_moe(routes):
+            for _ in range(MOE_PARITY_ROUNDS):
+                while pending and srv.admit(pending[0]):
+                    pending.pop(0)
+                srv.step()
+                rounds.append([(list(r.out_tokens), None if r.last_logits is None
+                                else r.last_logits.copy()) for r in reqs])
+        sides[side] = (rounds, [c["ids"].cpu() for c in routes])
+    (card, card_ids), (cpu, cpu_ids) = sides["card"], sides["cpu"]
+    if len(card_ids) != len(cpu_ids) or not all(torch.equal(a, b)
+                                                for a, b in zip(card_ids, cpu_ids)):
+        fail(f"10c {name}: the expert ids of the {len(card_ids)} MoE calls differ from the "
+             f"CPU's {len(cpu_ids)}")
+    for rnd, (a, b) in enumerate(zip(card, cpu), 1):
+        for j, ((ta, la), (tb, lb)) in enumerate(zip(a, b)):
+            if ta != tb:
+                fail(f"10c {name} round {rnd} request {j}: tokens {ta} != {tb}")
+            if (la is None) != (lb is None) or (
+                    la is not None and not np.allclose(la, lb, rtol=2e-5, atol=5e-5)):
+                fail(f"10c {name} round {rnd} request {j}: logits differ")
+    served = sum(t != [] for t, _ in card[-1])
+    print(f"phase 10c: reduced {name}: the first {MOE_PARITY_ROUNDS} rounds of {served} "
+          f"requests' tokens equal and logits within rtol 2e-5 / atol 5e-5 of the CPU copy; "
+          f"the expert ids of all {len(card_ids)} MoE calls equal")
+    return {"requests": served, "moe_calls": len(card_ids)}
+
+
+def reduced_moe_train(dev) -> dict:
+    """Phase 10c: one ``build_train_step`` fake-quant step of reduced
+    DeepSeek-V3 (fp32, TF32 off) on the card and on the CPU from the same
+    state: loss, ce_loss, load_balance_loss and mtp_loss within rtol 1e-5."""
+    cfg = reduced(get_config("deepseek_v3_671b")).replace(
+        dtype="float32", quant=QuantConfig(mode="fake_quant", M=2, K_iters=4))
+    opt = adamw(1e-2, eps=1e-3)
+    host = train_steps.init_train_state(cfg, opt, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (4, 17), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    out = {}
+    for side, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        state = cm.tree_map(lambda t: t.clone().to(d) if t.ndim else t.clone(), host)
+        _, met = train_steps.build_train_step(cfg, opt)(
+            state, cm.tree_map(lambda t: t.to(d), batch))
+        out[side] = {k: float(met[k]) for k in ("loss", "ce_loss", "load_balance_loss",
+                                                 "mtp_loss")}
+    for k, want in out["cpu"].items():
+        if not math.isfinite(out["card"][k]) or \
+                not math.isclose(out["card"][k], want, rel_tol=1e-5):
+            fail(f"10c train step: {k} {out['card'][k]!r} on the card, {want!r} on the CPU")
+    print(f"phase 10c: a fake-quant train step of reduced DeepSeek-V3 on the card: "
+          f"{out['card']}, within rtol 1e-5 of the CPU's")
+    return out
+
+
+def moe_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
+    """Phase 10: DeepSeek-V3 (a) and grok-1 (b) at their published widths,
+    then the reduced configs against a CPU copy (c)."""
+    t0 = time.time()
+    res = {"launches": {k: 0 for k in TPU_KERNELS}}
+    for name in MOE_ARCHS:
+        t1 = time.time()
+        cfg = moe_config(name)
+        params, build = build_moe_lm(cfg, dev)
+        weights = moe_weights(name, params)
+        r = {"config": {k: getattr(cfg, k) for k in (
+                 "name", "n_layers", "n_dense_layers", "d_model", "n_heads", "n_kv_heads",
+                 "d_ff", "d_ff_expert", "n_experts", "top_k", "n_shared_experts", "vocab",
+                 "use_mla", "q_lora_rank", "kv_lora_rank", "mtp_depth", "dtype")} | {"M": 2},
+             "build": build,
+             "max_abs_err": check_linear_kernels(f"phase 10 {name}", weights,
+                                                 lm_rows(cfg, params), gen, dev)}
+        if cfg.use_mla:
+            r["moe_vs_reference"] = moe_vs_reference(cfg, params, gen, dev)
+            r["card_vs_plain"] = moe_card_vs_plain(cfg, params)
+        r["serve"] = serve_moe(cfg, params, MOE_MATMULS_PER_PASS[name])
+        r["timing"] = moe_timing(cfg, params, dev, out_dir,
+                                 "deepseek" if cfg.use_mla else None)
+        r["linears"] = time_linears(f"phase 10 {name}", weights, gen, dev)
+        r["seconds"] = time.time() - t1
+        for k, v in r["serve"]["launches"].items():
+            res["launches"][k] += v
+        res[name] = r
+        del params, weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 10: {name} {r['seconds']:.1f} s")
+    res["reduced"] = {name: reduced_moe_parity(name, dev) for name in MOE_ARCHS}
+    res["train"] = reduced_moe_train(dev)
+    res["seconds"] = time.time() - t0
+    print(f"phase 10: {res['seconds']:.1f} s; launches {res['launches']}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -1553,6 +2096,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     verify = verify_phase(programs, inputs, dev, out_dir)
     fuzz_launches, soak_launches = verify["fuzz"]["launches"], verify["soak"]["launches"]
+    gc.collect()                      # phase 9's servers are gone: their memory goes back
+    torch.cuda.empty_cache()
+    moe = moe_phase(gen, dev, out_dir)
+    moe_launches = moe["launches"]
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -1563,7 +2110,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (launches[name] + lm["serve"]["launches"][name]
                          + train["cnn_a"]["launches"][name] + fuzz_launches[name]
-                         + soak_launches[name]),
+                         + soak_launches[name] + moe_launches[name]),
             "max_abs_err": max(max_err[name], lm["max_abs_err"] if name == "binary_matmul"
                                else 0.0),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": max(t_bytes, t_ops),
@@ -1572,17 +2119,19 @@ def main() -> int:
             "cnn_launches": launches[name], "serve_launches": serve["launches"][name],
             "lm_launches": lm["serve"]["launches"][name],
             "train_launches": train["cnn_a"]["launches"][name],
-            "fuzz_launches": fuzz_launches[name], "soak_launches": soak_launches[name]})
+            "fuzz_launches": fuzz_launches[name], "soak_launches": soak_launches[name],
+            "moe_launches": moe_launches[name]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
          "kernels": kernels, "layers": rows, "forward": forward, "profiles": profiles,
-         "serve": serve, "lm": lm, "train": train, "verify": verify},
+         "serve": serve, "lm": lm, "train": train, "verify": verify, "moe": moe},
         indent=1))
     print("timings: ms, plain_ms, library_ms and bound_ms sum one forward of CNN-A "
           "(batch 64) and one of MobileNetV1-224 (batch 16); launches counts phases 2 "
           "and 3 (three calls of each network), phase 7's serving of gemma-2b, phase "
-          "8a's execute of the retrained CNN-A, phase 9a's fuzz and phase 9c's soaks; the "
-          "LM shapes' times are under \"lm\" in chiprun_out/chip_smoke.json")
+          "8a's execute of the retrained CNN-A, phase 9a's fuzz, phase 9c's soaks and phase "
+          "10's serving of DeepSeek-V3 and grok-1; the LM shapes' times are under \"lm\" "
+          "and \"moe\" in chiprun_out/chip_smoke.json")
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,11 +3,11 @@
 Every ported architecture has one ``configs/<id>.py`` exporting ``CONFIG``
 (the JAX package's file with its import pointed here); ``get_config(name)``
 resolves it and ``reduced(cfg)`` shrinks it for CPU tests.  ``ArchConfig``
-holds the JAX package's fields that the dense family reads, under the same
-names and defaults, and the two training knobs (``remat``,
-``onehot_loss``); the MoE, MLA, SSM, hybrid, enc-dec and VLM fields come
-with the slices that port those families (ROADMAP), and the JAX package's
-sharding knobs with ``distributed/``.  The dry run's shape cells and input specs (``SHAPES``,
+holds the JAX package's fields that the dense and MoE families read (MoE,
+MLA, MTP), under the same names and defaults, and the two training knobs
+(``remat``, ``onehot_loss``); the SSM, hybrid, enc-dec and VLM fields come
+with the slices that port those families (ROADMAP item 4), and the JAX
+package's sharding knobs with ``distributed/``.  The dry run's shape cells and input specs (``SHAPES``,
 ``input_specs``, ``cells``) are not ported yet (ROADMAP item 14).
 """
 from __future__ import annotations
@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.core.binlinear import QuantConfig
 
-ARCH_IDS = ["gemma_2b", "qwen3_14b", "h2o_danube_1_8b", "codeqwen15_7b"]
+ARCH_IDS = ["gemma_2b", "qwen3_14b", "h2o_danube_1_8b", "codeqwen15_7b",
+            "grok_1_314b", "deepseek_v3_671b"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +42,22 @@ class ArchConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     logit_softcap: float | None = None
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int | None = None
+    n_dense_layers: int = 0          # leading dense layers (DeepSeek-V3: 3)
+    capacity_factor: float = 1.25
+    # --- MLA (DeepSeek) ---
+    use_mla: bool = False
+    q_lora_rank: int = 0             # 0 = no q compression
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # --- MTP (DeepSeek) ---
+    mtp_depth: int = 0
     # --- numerics / quant ---
     dtype: str = "bfloat16"
     quant: QuantConfig = QuantConfig(mode="dense")
@@ -65,15 +82,24 @@ def get_config(name: str) -> ArchConfig:
     if mod_name not in ARCH_IDS:
         raise NotImplementedError(
             f"config {name!r} is not in the port yet (ported: {ARCH_IDS}; the "
-            "other families wait for ROADMAP items 12b-12e)")
+            "ssm, hybrid, enc-dec and VLM families wait for ROADMAP items 12c-12e)")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """Tiny same-family config for CPU tests (the JAX package's cuts)."""
-    return cfg.replace(
+    kw = dict(
         n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads else 0,
         d_ff=128, vocab=512, head_dim=16,
         sliding_window=32 if cfg.sliding_window else None, remat=False,
     )
+    if cfg.n_experts:
+        kw.update(n_experts=4, top_k=min(cfg.top_k, 2), d_ff_expert=64,
+                  n_dense_layers=min(cfg.n_dense_layers, 1))
+    if cfg.use_mla:
+        kw.update(q_lora_rank=32 if cfg.q_lora_rank else 0, kv_lora_rank=32,
+                  qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
+    if cfg.mtp_depth:
+        kw.update(mtp_depth=1)
+    return cfg.replace(**kw)

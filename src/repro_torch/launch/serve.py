@@ -8,9 +8,10 @@ per-decoder-layer schedule).  Each step groups the active slots by their
 normalized level count and runs one batched decode per group.  The rows a
 grouped decode writes for non-group slots are *transient*: they land at a
 position the owning slot has not attended past yet, and that slot's next
-real decode overwrites the row before attending to it.  So the dense
-family needs no ``update_mask``; the JAX package's mask, which gates
-recurrent state, comes with the ssm/hybrid families (ROADMAP 12c/12d).
+real decode overwrites the row before attending to it (the MLA latent
+cache too).  So the dense and MoE families need no ``update_mask``; the
+JAX package's mask, which gates recurrent state, comes with the
+ssm/hybrid families (ROADMAP 12c/12d).
 
 Admission runs **bulk prefill**: one ``api.prefill`` forward over the
 prompt (B=1) emits the decode cache, which ``api.scatter_cache`` writes
@@ -24,7 +25,13 @@ level count; the port runs eagerly and keeps one specialised config per
 level count instead (``cache_sizes`` counts them).  The cache and the
 params live on the server's device (the params'); tokens and positions are
 staged there each step, and only the argmax tokens and ``last_logits``
-come back to the host.  Only the dense family is ported.
+come back to the host.  The dense and MoE families are ported.
+
+A MoE layer's routed experts have a capacity per dispatch group, so a
+request's stream can depend on its neighbours, as in the JAX package: a
+decode group dispatches all ``max_batch`` rows together (rows of other
+slots and other level groups at lower indices take capacity first), and a
+prefill's capacity follows its padded length.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Unified model API, dense family (port of ``repro/models/api.py``).
+"""Unified model API, dense and MoE families (port of ``repro/models/api.py``).
 
 The surface the serving runtime, tests and ``chip_smoke.py`` use:
 
@@ -10,11 +10,10 @@ The surface the serving runtime, tests and ``chip_smoke.py`` use:
   prefill(cfg, params, tokens, max_len)  -> (logits, cache)
   scatter_cache(cfg, cache, slot, part)  -> cache
   binarize_model_params(cfg, params)     -> packed deployment tree
-  count_params(cfg)                      -> int
+  count_params(cfg, active_only=False)   -> int
 
-Only the dense family is ported; every other family raises
-``NotImplementedError`` naming its ROADMAP item (the MoE load-balance and
-MTP loss terms come with MoE).
+The dense and MoE families (MLA, leading dense layers, MTP) are ported;
+every other family raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,8 +26,8 @@ from repro_torch.core import binlinear as bl
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf_mod
 
+_PORTED = ("dense", "moe")
 _WAITING = {  # family -> the ROADMAP item that ports it
-    "moe": "12b (moe.py with MLA)",
     "ssm": "12c (ssm.py)",
     "hybrid": "12d (hybrid.py)",
     "encdec": "12e (encdec.py and the VLM prefix)",
@@ -36,8 +35,8 @@ _WAITING = {  # family -> the ROADMAP item that ports it
 }
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+def _ported_only(cfg: ArchConfig) -> None:
+    if cfg.family not in _PORTED:
         item = _WAITING.get(cfg.family)
         if item is None:
             raise ValueError(cfg.family)
@@ -48,32 +47,50 @@ def _dense_only(cfg: ArchConfig) -> None:
 def init_params(cfg: ArchConfig, gen: torch.Generator, *, device="cuda") -> dict:
     """fp params drawn from ``gen`` (on the generator's device), placed on
     ``device``."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     return tf_mod.init_lm(gen, cfg, device=resolve_device(device))
 
 
 def forward(cfg: ArchConfig, params, batch):
     """Full-sequence forward -> (logits [B, S, V], aux dict)."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     return tf_mod.lm_forward(params, cfg, batch["tokens"])
 
 
+def _nll(logits, labels):
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, labels[..., None])[..., 0]
+
+
 def loss_fn(cfg: ArchConfig, params, batch):
-    """Next-token cross-entropy over fp32 logits -> (loss, metrics).  With
-    ``cfg.onehot_loss`` it is logsumexp minus a one-hot contraction (the JAX
-    package's vocab-sharded form), else log-softmax and a gather."""
-    _dense_only(cfg)
-    labels = batch["labels"].long()
-    logits, _ = forward(cfg, params, batch)
-    lg = logits.to(torch.float32)
+    """Next-token cross-entropy over fp32 logits (+ MoE load balance x 0.01
+    + MTP x 0.3) -> (loss, metrics).  With ``cfg.onehot_loss`` the CE is
+    logsumexp minus a one-hot contraction (the JAX package's vocab-sharded
+    form), else log-softmax and a gather."""
+    _ported_only(cfg)
+    tokens, labels = batch["tokens"], batch["labels"].long()
+    hidden, aux = tf_mod.lm_hidden(params, cfg, tokens)
+    logits = tf_mod.lm_logits(params, cfg, hidden)
     if cfg.onehot_loss:
+        lg = logits.to(torch.float32)
         onehot = F.one_hot(labels, lg.shape[-1]).to(lg.dtype)
         nll = torch.logsumexp(lg, dim=-1) - torch.einsum("bsv,bsv->bs", lg, onehot)
     else:
-        logp = torch.log_softmax(lg, dim=-1)
-        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        nll = _nll(logits, labels)
     loss = torch.mean(nll)
-    return loss, {"ce_loss": loss, "loss": loss}
+    metrics = {"ce_loss": loss}
+    if cfg.n_experts:
+        lb = aux["load_balance_loss"] * 0.01
+        loss = loss + lb
+        metrics["load_balance_loss"] = lb
+    if cfg.mtp_depth:
+        # MTP: logits at position t predict labels[t+1] (== tokens[t+2])
+        mtp_loss = 0.3 * torch.mean(_nll(tf_mod.mtp_logits(params, cfg, hidden, tokens),
+                                         labels[:, 1:]))
+        loss = loss + mtp_loss
+        metrics["mtp_loss"] = mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -81,12 +98,12 @@ def loss_fn(cfg: ArchConfig, params, batch):
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
-    _dense_only(cfg)
+    _ported_only(cfg)
     return tf_mod.lm_cache_specs(cfg, batch, max_len)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda") -> dict:
-    _dense_only(cfg)
+    _ported_only(cfg)
     return tf_mod.init_lm_cache(cfg, batch, max_len, device=resolve_device(device))
 
 
@@ -95,8 +112,8 @@ def decode_step(cfg: ArchConfig, params, batch):
     cache written in place.  The JAX package's ``batch["update_mask"]``
     gates recurrent state only (ssm/hybrid, ROADMAP items 12c/12d);
     positional KV caches need none (see ``launch/serve.py``'s transient-row
-    invariant), so the dense family takes no mask."""
-    _dense_only(cfg)
+    invariant), so the dense and MoE families take no mask."""
+    _ported_only(cfg)
     return tf_mod.lm_decode_step(params, cfg, batch["tokens"], batch["pos"], batch["cache"])
 
 
@@ -109,14 +126,14 @@ def prefill(cfg: ArchConfig, params, tokens, *, max_len: int):
     """Bulk prefill: tokens [B, S] -> (logits [B, S, V], decode cache shaped
     like ``cache_specs(cfg, B, max_len)`` with positions 0..S-1 populated),
     the same state as S ``decode_step`` calls in one forward."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     return tf_mod.lm_prefill(params, cfg, tokens, max_len=max_len)
 
 
 def scatter_cache(cfg: ArchConfig, cache, slot: int, part):
     """Write a B=1 prefill cache into batch row ``slot`` of a serving cache,
     in place (leaves are [L, B, ...]); other rows are untouched."""
-    _dense_only(cfg)
+    _ported_only(cfg)
 
     def put(full, p):
         full[:, slot] = p[:, 0]
@@ -162,16 +179,46 @@ def binarize_model_params(cfg: ArchConfig, params, *, qc=None):
     return convert((), params)
 
 
-def count_params(cfg: ArchConfig) -> int:
-    """Parameter count of ``init_params(cfg)``, from the config alone."""
-    _dense_only(cfg)
-    d, hd = cfg.d_model, cfg.resolved_head_dim
+def _attn_params(cfg: ArchConfig) -> int:
+    d = cfg.d_model
+    if cfg.use_mla:
+        H, qk, r, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        ql, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        q = d * ql + ql + ql * H * (qk + r) if ql else d * H * (qk + r)
+        return q + d * (kvr + r) + kvr + kvr * H * qk + kvr * H * vd + H * vd * d
+    hd = cfg.resolved_head_dim
     q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    attn = d * q + 2 * d * kv + q * d
+    n = d * q + 2 * d * kv + q * d
     if cfg.qkv_bias:
-        attn += q + 2 * kv
+        n += q + 2 * kv
     if cfg.qk_norm:
-        attn += 2 * hd
-    ffn = (3 if cfg.activation in ("swiglu", "geglu") else 2) * d * cfg.d_ff
-    tables = (1 if cfg.tie_embeddings else 2) * cfg.vocab * d
-    return cfg.n_layers * (attn + ffn + 2 * d) + tables + d
+        n += 2 * hd
+    return n
+
+
+def _ffn_params(cfg: ArchConfig, d_ff: int) -> int:
+    return (3 if cfg.activation in ("swiglu", "geglu") else 2) * cfg.d_model * d_ff
+
+
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Parameter count of ``init_params(cfg)``, from the config alone;
+    ``active_only`` leaves out the routed experts a token does not visit
+    (the JAX package's rule: all but ``top_k`` of them in each MoE layer)."""
+    _ported_only(cfg)
+    d = cfg.d_model
+    Fe = cfg.d_ff_expert or cfg.d_ff
+    attn = _attn_params(cfg) + 2 * d                       # + the two layer norms
+    dense = attn + _ffn_params(cfg, cfg.d_ff or (cfg.d_ff_expert or 128))
+    n_main = cfg.n_layers - cfg.n_dense_layers
+    main = dense
+    if cfg.n_experts:
+        main = attn + d * cfg.n_experts + 3 * cfg.n_experts * d * Fe
+        if cfg.n_shared_experts:
+            main += _ffn_params(cfg, Fe * cfg.n_shared_experts)
+    total = n_main * main + cfg.n_dense_layers * dense
+    total += (1 if cfg.tie_embeddings else 2) * cfg.vocab * d + d
+    if cfg.mtp_depth:
+        total += 2 * d * d + dense + d
+    if active_only and cfg.n_experts:
+        total -= n_main * (cfg.n_experts - cfg.top_k) * 3 * d * Fe
+    return total

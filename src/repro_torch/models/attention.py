@@ -1,16 +1,18 @@
-"""GQA/MQA attention with qk-norm, RoPE, sliding window and an explicit KV
-cache (port of ``repro/models/attention.py``, lines 25-225).
+"""Attention variants: GQA/MQA with qk-norm, RoPE and sliding window, and
+MLA (port of ``repro/models/attention.py``).
 
 Decode uses an explicit KV cache:
   * full attention: cache [B, S_max, kv, hd] with validity mask slot <= pos;
   * sliding window: rolling cache [B, W, kv, hd] + per-slot global
-    positions (``slot_pos``), the new token written at ``pos % W``.
+    positions (``slot_pos``), the new token written at ``pos % W``;
+  * MLA: latent cache ``c_kv`` [B, S_max, kv_lora] and ``k_rope``
+    [B, S_max, rope_dim]; decode uses the absorbed form (queries projected
+    into latent space, in fp32).
 
 The scores run in plain torch ops with fp32 accumulation, as the JAX
 package's ``_gqa_scores`` does (no Pallas kernel there).  ``attn_decode``
-writes the new token's rows into the cache tensors in place (JAX returns
-updated copies); ``attn_prefill`` builds a fresh cache.  MLA waits with
-MoE (ROADMAP item 12b).
+and ``mla_decode`` write the new token's rows into the cache tensors in
+place (JAX returns updated copies); the prefills build a fresh cache.
 """
 from __future__ import annotations
 
@@ -208,3 +210,135 @@ def attn_decode(params, x, cfg: ArchConfig, cache: dict, pos: torch.Tensor):
         valid = torch.arange(W, device=x.device)[None, :] <= pos[:, None]
     o = _attend(q, cache["k"], cache["v"], valid[:, None, None, :]).to(x.dtype)
     return cm.linear(params["wo"], o, cfg.quant), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ArchConfig, *, device="cuda") -> dict:
+    dt = cfg.torch_dtype
+    dev = resolve_device(device)
+    H, qk, r, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+
+    def lin(k, n):
+        return cm.init_linear(gen, k, n, dt, device=dev)
+
+    p = {}
+    if cfg.q_lora_rank:
+        p["wdq"] = lin(cfg.d_model, cfg.q_lora_rank)
+        p["q_norm"] = cm.init_rmsnorm(cfg.q_lora_rank, dt, device=dev)
+        p["wuq"] = lin(cfg.q_lora_rank, H * (qk + r))
+    else:
+        p["wq"] = lin(cfg.d_model, H * (qk + r))
+    p["wdkv"] = lin(cfg.d_model, cfg.kv_lora_rank + r)
+    p["kv_norm"] = cm.init_rmsnorm(cfg.kv_lora_rank, dt, device=dev)
+    p["wuk"] = lin(cfg.kv_lora_rank, H * qk)
+    p["wuv"] = lin(cfg.kv_lora_rank, H * vd)
+    p["wo"] = lin(H * vd, cfg.d_model)
+    return p
+
+
+def _mla_queries(params, x, cfg: ArchConfig, positions):
+    B, S, _ = x.shape
+    H, qk, r = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        cq = cm.rms_norm(params["q_norm"], cm.linear(params["wdq"], x, cfg.quant),
+                         cfg.norm_eps)
+        q = cm.linear(params["wuq"], cq, cfg.quant)
+    else:
+        q = cm.linear(params["wq"], x, cfg.quant)
+    q = q.reshape(B, S, H, qk + r)
+    return q[..., :qk], cm.apply_rope(q[..., qk:], positions, cfg.rope_theta)
+
+
+def _mla_latents(params, x, cfg: ArchConfig, positions):
+    """c_kv [B,S,rank] (normed), k_rope [B,S,r] (shared across heads)."""
+    rank = cfg.kv_lora_rank
+    dkv = cm.linear(params["wdkv"], x, cfg.quant)
+    c_kv = cm.rms_norm(params["kv_norm"], dkv[..., :rank], cfg.norm_eps)
+    k_rope = cm.apply_rope(dkv[..., rank:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_attend(params, x, cfg: ArchConfig, positions, mask):
+    """Materialized per-head k/v from the latents -> (y [B,S,D], c_kv, k_rope).
+    Operands are widened to fp32 (JAX's fp32 accumulation); the softmax
+    weights are rounded to x's dtype before the value product."""
+    B, S, _ = x.shape
+    H, qk, r, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_queries(params, x, cfg, positions)
+    c_kv, k_rope = _mla_latents(params, x, cfg, positions)
+    k_nope = cm.linear(params["wuk"], c_kv, cfg.quant).reshape(B, S, H, qk)
+    v = cm.linear(params["wuv"], c_kv, cfg.quant).reshape(B, S, H, vd)
+    f32 = torch.float32
+    logits = (torch.einsum("bqhd,bshd->bhqs", q_nope.to(f32), k_nope.to(f32))
+              + torch.einsum("bqhd,bsd->bhqs", q_rope.to(f32), k_rope.to(f32))) \
+        * (1.0 / math.sqrt(qk + r))
+    if mask is None:
+        mask = cm.causal_mask(S, device=x.device)
+    w = torch.softmax(logits.masked_fill(~mask[None, None], NEG_INF), dim=-1).to(x.dtype)
+    o = torch.einsum("bhqs,bshd->bqhd", w.to(f32), v.to(f32))
+    o = o.reshape(B, S, H * vd).to(x.dtype)
+    return cm.linear(params["wo"], o, cfg.quant), c_kv, k_rope
+
+
+def mla_forward(params, x, cfg: ArchConfig, *, positions=None, mask=None):
+    """Train/prefill MLA: materialize per-head k/v from the latent."""
+    return _mla_attend(params, x, cfg, positions, mask)[0]
+
+
+def mla_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    dt = cfg.torch_dtype
+    return {"c_kv": CacheSpec((batch, max_len, cfg.kv_lora_rank), dt),
+            "k_rope": CacheSpec((batch, max_len, cfg.qk_rope_dim), dt)}
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict:
+    return init_from_specs(mla_cache_specs(cfg, batch, max_len), device)
+
+
+def mla_prefill(params, x, cfg: ArchConfig, *, max_len: int, positions=None, mask=None):
+    """Full-sequence MLA that also emits the latent decode cache: the
+    per-position ``c_kv``/``k_rope`` for 0..S-1, zero-padded to
+    ``max_len``.  Requires S <= max_len."""
+    B, S, _ = x.shape
+    y, c_kv, k_rope = _mla_attend(params, x, cfg, positions, mask)
+    dt = cfg.torch_dtype
+    cache = {"c_kv": torch.zeros((B, max_len, cfg.kv_lora_rank), dtype=dt, device=x.device),
+             "k_rope": torch.zeros((B, max_len, cfg.qk_rope_dim), dtype=dt, device=x.device)}
+    cache["c_kv"][:, :S] = c_kv.to(dt)
+    cache["k_rope"][:, :S] = k_rope.to(dt)
+    return y, cache
+
+
+def mla_decode(params, x, cfg: ArchConfig, cache: dict, pos: torch.Tensor):
+    """Absorbed-form decode: scores and outputs computed in latent space, in
+    fp32, so the per-token cache is kv_lora_rank + rope_dim values.  The
+    new token's latents are written into the cache in place; ``wuk``/``wuv``
+    are read as fp weights (they stay fp in a binarized tree)."""
+    B = x.shape[0]
+    H, qk, r, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    rank = cfg.kv_lora_rank
+    f32 = torch.float32
+    q_nope, q_rope = _mla_queries(params, x, cfg, pos[:, None])     # [B,1,H,*]
+    c_new, k_rope_new = _mla_latents(params, x, cfg, pos[:, None])
+    bidx = torch.arange(B, device=x.device)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    c_kv[bidx, pos] = c_new[:, 0].to(c_kv.dtype)
+    k_rope[bidx, pos] = k_rope_new[:, 0].to(k_rope.dtype)
+    # absorb W_uk into the query:  q_lat[b,h,rank] = q_nope · W_uk[rank, h, qk]
+    wuk = params["wuk"]["w"].to(f32).reshape(rank, H, qk)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].to(f32), wuk)
+    ckv = c_kv.to(f32)
+    logits = (torch.einsum("bhr,bsr->bhs", q_lat, ckv)
+              + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(f32), k_rope.to(f32))) \
+        * (1.0 / math.sqrt(qk + r))
+    valid = torch.arange(c_kv.shape[1], device=x.device)[None, :] <= pos[:, None]
+    w = torch.softmax(logits.masked_fill(~valid[:, None, :], NEG_INF), dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", w, ckv)
+    wuv = params["wuv"]["w"].to(f32).reshape(rank, H, vd)
+    o = torch.einsum("bhr,rhd->bhd", o_lat, wuv).reshape(B, 1, H * vd)
+    return cm.linear(params["wo"], o.to(x.dtype), cfg.quant), cache

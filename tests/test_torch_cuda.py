@@ -277,11 +277,20 @@ def test_golden_checkpoint_and_service_on_the_card(card, tmp_path):
     assert all(torch.equal(r.logits, want[r.batch_index]) for r in done)
 
 
-@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (2048, 16384), (16384, 2048)])
+@pytest.mark.parametrize("K,N", [
+    (2048, 2048), (2048, 256), (2048, 16384), (16384, 2048),       # gemma-2b
+    (2560, 2560), (6912, 2560), (17408, 5120),                     # danube q, down; qwen3 down
+    (7168, 1536), (1536, 24576), (7168, 576), (16384, 7168),       # DeepSeek-V3 MLA
+    (7168, 18432), (18432, 7168), (7168, 2048), (2048, 7168),      # dense FFN, shared expert
+    (14336, 7168),                                                 # MTP proj
+    (6144, 6144), (6144, 1024)])                                   # grok-1 q/o, k/v
 @pytest.mark.parametrize("T", [1, 8])
 def test_binary_matmul_kernel_at_the_lm_shapes(card, T, K, N):
-    """gemma-2b's linears (q/o, k/v under MQA, gate/up, down) at decode's
-    row counts, m_active 1 and 2; K = 16384 cuts into chunks of 2048."""
+    """The LM configs' linears at full width, at decode's row counts,
+    m_active 1 and 2: gemma-2b's (q/o, k/v under MQA, gate/up, down), the K
+    of danube and qwen3 that ``reduced()`` shrinks (2560, 6912, 17408),
+    DeepSeek-V3's (MLA wdq/wuq/wdkv/wo, dense and shared-expert FFN, MTP
+    proj) and grok-1's attention; K = 16384 cuts into chunks of 2048."""
     gen = torch.Generator().manual_seed(T + K + N)
     x = torch.randn(T, K, generator=gen).to(card)
     packed = bz.pack_bits(_signs(gen, (2, K, N))).to(card)
@@ -305,6 +314,46 @@ def test_lm_server_on_the_card_matches_the_cpu(card):
 
     qc = QuantConfig(mode="binary", M=2, K_iters=2)
     cfg = reduced(get_config("gemma_2b")).replace(dtype="float32", quant=qc)
+    host = api.binarize_model_params(
+        cfg, api.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    params = {"cpu": host, "cuda": cm.tree_map(lambda t: t.to(card), host)}
+    rng = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).numpy().astype("int32")
+               for n in (5, 9, 3, 12)]
+    served = {}
+    for where, p in params.items():
+        srv = Server(cfg, p, max_batch=3, max_len=32)
+        reqs = [Request(prompt=pr, max_new_tokens=5, m_active=m)
+                for pr, m in zip(prompts, (None, 1, (1, 2), None))]
+        pending = list(reqs)
+        while pending or any(s is not None for s in srv.slots):
+            while pending and srv.admit(pending[0]):
+                pending.pop(0)
+            before, steps = ops.launch_counts()["binary_matmul"], srv.stats["decode_steps"]
+            srv.step()
+            if where == "cuda":
+                torch.cuda.synchronize()
+                assert ops.launch_counts()["binary_matmul"] - before == \
+                    14 * (srv.stats["decode_steps"] - steps)
+        served[where] = (reqs, srv.stats)
+    assert served["cuda"][1] == served["cpu"][1]
+    for a, b in zip(served["cuda"][0], served["cpu"][0]):
+        assert a.out_tokens == b.out_tokens
+        torch.testing.assert_close(torch.from_numpy(a.last_logits),
+                                   torch.from_numpy(b.last_logits), rtol=2e-5, atol=5e-5)
+
+
+def test_moe_server_on_the_card_matches_the_cpu(card):
+    """A reduced DeepSeek-V3 (MLA, 1 leading dense layer + 1 MoE layer with a
+    shared expert, M=2 binary linears) served on the card and on the CPU:
+    the same tokens, logits within rtol 2e-5 / atol 5e-5, the same stats,
+    and 2 layers x 7 matmul launches per decode group step."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import api, common as cm
+
+    qc = QuantConfig(mode="binary", M=2, K_iters=2)
+    cfg = reduced(get_config("deepseek_v3_671b")).replace(dtype="float32", quant=qc)
     host = api.binarize_model_params(
         cfg, api.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"))
     params = {"cpu": host, "cuda": cm.tree_map(lambda t: t.to(card), host)}

@@ -295,7 +295,7 @@ def test_schedules_uniform_equals_int_and_mixed_differs(models):
                                             toks, max_len=8)[0])
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "vlm"])
 def test_other_families_raise(family):
     cfg = tcb.reduced(tcb.get_config("gemma_2b")).replace(family=family)
     for call in (lambda: tapi.init_params(cfg, torch.Generator(), device="cpu"),
