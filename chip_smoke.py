@@ -94,7 +94,7 @@ source, all at once) and runs, each phase failing loudly:
      ``CNNService`` under fault storms (324 steps, every injected fault
      reconciled), the checkpoint cycle (120 steps), ``Server`` on reduced
      gemma-2b (1100 steps, >= 2000 decode steps) and on reduced
-     h2o-danube, qwen3 and codeqwen (200 steps each), each server's first
+     h2o-danube, qwen3 and codeqwen (100 steps each), each server's first
      4 rounds equal to the same scenario on the CPU (tokens; logits within
      rtol 2e-5 / atol 5e-5).  Trend CSVs go to ``chiprun_out/soak/``;
  10. the MoE family at published widths, cut in depth only, fp32, M=2
@@ -121,7 +121,35 @@ source, all at once) and runs, each phase failing loudly:
      mixed-mode requests (tokens equal, logits within rtol 2e-5 /
      atol 5e-5, every MoE call's expert ids equal), and one fake-quant
      ``build_train_step`` step of reduced DeepSeek-V3 against the CPU
-     (loss, ce_loss, load_balance_loss, mtp_loss within rtol 1e-5).
+     (loss, ce_loss, load_balance_loss, mtp_loss within rtol 1e-5);
+ 11. the SSM and hybrid families at published widths and depths, fp32, M=2
+     (K_iters 8), weights drawn on the card and each layer binarized as
+     drawn (the Mamba2 dynamics and the norms stay fp32), after phase 10's
+     models are freed: (a) mamba2-2.7b (64 layers, d_model 2560, 80 heads x
+     64, state 128, vocab 50280): the matmul kernel against its plain
+     version at its 2 linear shapes (2560->10576 leaves a 16-column tail)
+     and every row count of the phase; ``ssd_chunked`` at full width on the
+     card against a float64 token-by-token recurrence (L = 64, 256 and the
+     prime 257, chunk 1: y and the final state within rtol 2e-4 /
+     atol 2e-4); bulk prefill of 64 tokens against 64 token-wise decode
+     steps (every cache leaf and the next logits within rtol 1e-4 /
+     atol 1e-4·max|x|); the first 2 layers on the card against a CPU copy;
+     ``Server`` serving phase 7's 8 requests with 128 matmul launches per
+     admission and per decode group step, a second run bit-equal, each
+     request alone (``max_batch=1``) equal to the mix (logits rtol 1e-5 /
+     atol 1e-5), slot 0's state ``torch.equal`` across the other 7
+     admissions and the decode groups it is not in; admission of 64 tokens,
+     the decode step at 8 slots beside its bytes bound, a profiler window
+     of 3 decode steps (``chiprun_out/trace_mamba2.json.gz``: idle share, the
+     matmul kernel, the ops on the recurrent state, the LM head); (b)
+     zamba2-7b (81 Mamba2 layers and 13 shared-block points, d_model 3584,
+     32 x 112 MHA, d_ff 14336, state 64, vocab 32000): the same checks but
+     the SSD one at its 6 linear shapes, 266 launches per pass, the first 6
+     layers and their shared block against the CPU
+     (``chiprun_out/trace_zamba2.json.gz``); (c) reduced mamba2 and zamba2
+     served on the card against a CPU copy for 4 rounds and one fake-quant
+     train step of each against the CPU (every metric within rtol 1e-5,
+     the card's gradients finite).
 
 Weights are random, drawn from a seeded generator.  The logits of phases 2
 and 3 are compared with rtol 1e-4 and atol 1e-4·max|logit| (a relative
@@ -129,21 +157,23 @@ floor: the reference's random MobileNet init shrinks activations to ~1e-13
 by the head, and 28 layers of fp32 sums run in another order on each side).
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` counts the main
-paths of phases 2, 3, 7, 8a, 9a, 9c and 10, ``cnn_launches`` phases 2-3,
+paths of phases 2, 3, 7, 8a, 9a, 9c, 10 and 11, ``cnn_launches`` phases 2-3,
 ``serve_launches`` phase 6, ``lm_launches`` phase 7's serving,
 ``train_launches`` phase 8a's execute, ``fuzz_launches`` phase 9a's
-``execute`` calls, ``soak_launches`` phase 9c's soaks and
-``moe_launches`` phase 10's serving), nvidia-smi's line, and last
-``{"ok": true, "device": {...}}``; per-instruction numbers go to
+``execute`` calls, ``soak_launches`` phase 9c's soaks, ``moe_launches``
+phase 10's serving and ``ssm_launches`` phase 11's), nvidia-smi's line,
+and last ``{"ok": true, "device": {...}}``; per-instruction numbers go to
 ``chiprun_out/chip_smoke.json``, phase 7's under ``"lm"``, phase 8's under
-``"train"``, phase 9's under ``"verify"``, phase 10's under ``"moe"``.  Exits non-zero, printing no result,
-without a card or without the repository's ``src/`` beside it.
+``"train"``, phase 9's under ``"verify"``, phase 10's under ``"moe"``,
+phase 11's under ``"ssm"``.  Exits non-zero, printing no result, without
+a card or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import gc
+import gzip
 import json
 import math
 import os
@@ -175,6 +205,7 @@ try:
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import api, common as cm, transformer as tf
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import hybrid as hybrid_mod, ssm as ssm_mod
     from repro_torch.kernels.binary_conv import unpack_taps
     from repro_torch.kernels.binary_dwconv import unpack_dw_taps
     from repro_torch.models import cnn
@@ -1278,8 +1309,8 @@ def train_phase(dev, out_dir: Path) -> dict:
 FUZZ_SEEDS = range(128)        # include the JAX package's pinned 0, 3, 6, 11
 MOBILENET_B2 = {"width_mult": 1.0, "n_classes": 1000, "resolution": 224}
 SOAK_STEPS = {"executor": 520, "cnn_server": 324, "checkpoint": 120, "server": 1100}
-SOAK_FAMILIES = ("h2o_danube_1_8b", "qwen3_14b", "codeqwen15_7b")  # 200 steps each
-FAMILY_STEPS, PARITY_ROUNDS = 200, 4
+SOAK_FAMILIES = ("h2o_danube_1_8b", "qwen3_14b", "codeqwen15_7b")
+FAMILY_STEPS, PARITY_ROUNDS = 100, 4
 
 
 def counted_launches(fn, into: dict):
@@ -1548,7 +1579,6 @@ MOE_LINEARS = {  # arch -> label -> the path of one packed linear of that shape
 MOE_MATMULS_PER_PASS = {  # matmul launches per admission and per decode group step
     "deepseek_v3_671b": 4 * (4 + 3),   # MLA wdq/wuq/wdkv/wo + dense or shared gate/up/down
     "grok_1_314b": 2 * 4}              # q/k/v/o; the routed experts run no packed linear
-MOE_PARITY_ROUNDS = 4
 
 
 def moe_config(name: str):
@@ -1557,14 +1587,14 @@ def moe_config(name: str):
                                     quant=QuantConfig(mode="binary", M=2, K_iters=8))
 
 
-def stacked_layers(gen: torch.Generator, cfg, n: int, kind: str, dev) -> tuple[dict, float]:
-    """``n`` layers drawn and binarized one at a time into ``[n, ...]``
-    leaves, and the seconds binarize took.  A one-layer stack is a view of
-    its layer; a longer one is allocated once and filled, since two copies
-    of a full-width expert bank do not fit on the card."""
+def stacked_layers(draw, cfg, n: int) -> tuple[dict, float]:
+    """``n`` layers, each drawn by ``draw()`` and binarized at once, into
+    ``[n, ...]`` leaves, and the seconds binarize took.  A one-layer stack
+    is a view of its layer; a longer one is allocated once and filled, since
+    two copies of a full-width expert bank do not fit on the card."""
     stack, bin_s = None, 0.0
     for i in range(n):
-        fp = tf.init_layer(gen, cfg, kind=kind, device=dev)
+        fp = draw()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         layer = api.binarize_model_params(cfg, fp)
@@ -1591,10 +1621,11 @@ def build_moe_lm(cfg, dev) -> tuple[dict, dict]:
     params = {"embed": cm.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device=dev)}
     bin_s = 0.0
     if cfg.n_dense_layers:
-        params["dense_layers"], s = stacked_layers(gen, cfg, cfg.n_dense_layers, "dense", dev)
+        params["dense_layers"], s = stacked_layers(
+            lambda: tf.init_layer(gen, cfg, kind="dense", device=dev), cfg, cfg.n_dense_layers)
         bin_s += s
-    params["layers"], s = stacked_layers(gen, cfg, cfg.n_layers - cfg.n_dense_layers, "moe",
-                                         dev)
+    params["layers"], s = stacked_layers(lambda: tf.init_layer(gen, cfg, kind="moe", device=dev),
+                                         cfg, cfg.n_layers - cfg.n_dense_layers)
     bin_s += s
     params["final_norm"] = cm.init_rmsnorm(cfg.d_model, dt, device=dev)
     if not cfg.tie_embeddings:
@@ -1627,10 +1658,11 @@ def build_moe_lm(cfg, dev) -> tuple[dict, dict]:
     return params, info
 
 
-def moe_weights(name: str, params) -> dict:
-    """One packed linear of each of the config's shapes, labelled K->N."""
+def linear_weights(paths: dict, params) -> dict:
+    """One packed linear of each shape of ``paths`` (label -> its path in
+    the tree), labelled "label K->N"."""
     out = {}
-    for label, path in MOE_LINEARS[name].items():
+    for label, path in paths.items():
         p = params
         for k in path:
             p = p[k]
@@ -1755,55 +1787,71 @@ def moe_card_vs_plain(cfg, params) -> dict:
     return {"worst_rel_err": worst}
 
 
+def run_requests(where: str, cfg, params, per_pass: int, launches: dict | None):
+    """``lm_requests(cfg)`` through ``Server(max_batch=8, max_len=256)``
+    until done; with ``launches``, the counts are set to 0 just before each
+    admission and each step, read just after, held to ``per_pass`` matmul
+    launches per admission and per decode group step and added up."""
+    reqs = lm_requests(cfg)
+    srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
+    rounds = 0
+
+    def counted(fn, passes):
+        ops.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+        if launches is None:
+            return
+        if n["binary_matmul"] != passes() * per_pass or n["binary_conv"] \
+                or n["binary_dwconv"]:
+            fail(f"{where} serve {cfg.name}: launches {n}, want {passes()} x {per_pass} "
+                 f"matmul launches")
+        for k, v in n.items():
+            launches[k] += v
+
+    for r in reqs:
+        counted(lambda: srv.admit(r) or fail(f"{where} serve: admission refused"), lambda: 1)
+    while any(s is not None for s in srv.slots):
+        before = srv.stats["decode_steps"]
+        counted(srv.step, lambda: srv.stats["decode_steps"] - before)
+        rounds += 1
+    return reqs, srv, rounds
+
+
+def serve_twice(where: str, cfg, params, per_pass: int):
+    """The main path (``run_requests`` with its launches counted), every
+    request done with finite logits, then the same requests on a fresh
+    server: the same tokens and bit-equal logits.  Returns the first run's
+    requests, server, rounds, launches and seconds."""
+    launches = {k: 0 for k in TPU_KERNELS}
+    t0 = time.perf_counter()
+    reqs, srv, rounds = run_requests(where, cfg, params, per_pass, launches)
+    serve_s = time.perf_counter() - t0
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != LM_NEW or r.last_logits.shape != (cfg.vocab,) \
+                or not np.isfinite(r.last_logits).all() \
+                or not all(0 <= t < cfg.vocab for t in r.out_tokens):
+            fail(f"{where} serve {cfg.name}: request of {r.prompt.size} tokens ended with "
+                 f"{r.out_tokens}")
+    again = run_requests(where, cfg, params, per_pass, None)[0]
+    for a, b in zip(reqs, again):
+        if a.out_tokens != b.out_tokens or not np.array_equal(a.last_logits, b.last_logits):
+            fail(f"{where} serve {cfg.name}: a second run differs: {a.out_tokens} / "
+                 f"{b.out_tokens}")
+    return reqs, srv, rounds, launches, serve_s
+
+
 def serve_moe(cfg, params, per_pass: int) -> dict:
     """Phase 10's main path: 8 requests through ``Server`` until done, the
     launch counts set to 0 just before each admission and each step and
     read just after (``per_pass`` matmul launches per admission and per
     decode group step); then the same requests again on a fresh server:
     the same tokens and bit-equal logits."""
-    def run(launches: dict | None):
-        reqs = lm_requests(cfg)
-        srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
-        routes, rounds = [], 0
-
-        def counted(fn, passes):
-            ops.reset_launch_counts()
-            fn()
-            torch.cuda.synchronize()
-            n = ops.launch_counts()
-            if launches is None:
-                return
-            if n["binary_matmul"] != passes() * per_pass or n["binary_conv"] \
-                    or n["binary_dwconv"]:
-                fail(f"10 serve {cfg.name}: launches {n}, want {passes()} x {per_pass} "
-                     f"matmul launches")
-            for k, v in n.items():
-                launches[k] += v
-
-        with recording_moe(routes):
-            for r in reqs:
-                counted(lambda: srv.admit(r) or fail("10 serve: admission refused"),
-                        lambda: 1)
-            while any(s is not None for s in srv.slots):
-                before = srv.stats["decode_steps"]
-                counted(srv.step, lambda: srv.stats["decode_steps"] - before)
-                rounds += 1
-        return reqs, srv, routes, rounds
-
-    launches = {k: 0 for k in TPU_KERNELS}
-    t0 = time.perf_counter()
-    reqs, srv, routes, rounds = run(launches)
-    serve_s = time.perf_counter() - t0
-    for r in reqs:
-        if not r.done or len(r.out_tokens) != LM_NEW or r.last_logits.shape != (cfg.vocab,) \
-                or not np.isfinite(r.last_logits).all() \
-                or not all(0 <= t < cfg.vocab for t in r.out_tokens):
-            fail(f"10 serve {cfg.name}: request of {r.prompt.size} tokens ended with "
-                 f"{r.out_tokens}")
-    again = run(None)[0]
-    for a, b in zip(reqs, again):
-        if a.out_tokens != b.out_tokens or not np.array_equal(a.last_logits, b.last_logits):
-            fail(f"10 serve {cfg.name}: a second run differs: {a.out_tokens} / {b.out_tokens}")
+    routes = []
+    with recording_moe(routes):
+        reqs, srv, rounds, launches, serve_s = serve_twice("10", cfg, params, per_pass)
+    routes = routes[:len(routes) // 2]      # the first run's calls; the second repeats them
     drop = {w: [float(c["dropped_frac"]) for c in routes if c["decode"] == (w == "decode")]
             for w in ("prefill", "decode")}
     res = {"stats": srv.stats, "rounds": rounds, "serve_s": serve_s, "launches": launches,
@@ -1908,12 +1956,11 @@ def moe_timing(cfg, params, dev, out_dir: Path, profile_name: str | None) -> dic
     return {**step, "profile": split}
 
 
-def reduced_moe_parity(name: str, dev) -> dict:
-    """Phase 10c: ``reduced(name)`` in fp32 with M=2 binary linears served on
-    the card and on a CPU copy: 8 requests (m_active None, 1, per layer, 2)
-    through ``Server(max_batch=4)``, the first 4 rounds' tokens equal,
-    logits within rtol 2e-5 / atol 5e-5, every MoE call's expert ids
-    equal."""
+def reduced_parity(phase: str, name: str, dev) -> dict:
+    """``reduced(name)`` in fp32 with M=2 binary linears served on the card
+    and on a CPU copy: 8 requests (m_active None, 1, per layer, 2) through
+    ``Server(max_batch=4)``, the first 4 rounds' tokens equal, logits within
+    rtol 2e-5 / atol 5e-5, every MoE call's expert ids equal."""
     cfg = reduced(get_config(name)).replace(dtype="float32",
                                             quant=QuantConfig(mode="binary", M=2, K_iters=2))
     host = api.binarize_model_params(
@@ -1928,7 +1975,7 @@ def reduced_moe_parity(name: str, dev) -> dict:
         reqs = [Request(prompt=p, max_new_tokens=2, m_active=m) for p, m in zip(prompts, modes)]
         pending, rounds, routes = list(reqs), [], []
         with recording_moe(routes):
-            for _ in range(MOE_PARITY_ROUNDS):
+            for _ in range(PARITY_ROUNDS):
                 while pending and srv.admit(pending[0]):
                     pending.pop(0)
                 srv.step()
@@ -1938,27 +1985,28 @@ def reduced_moe_parity(name: str, dev) -> dict:
     (card, card_ids), (cpu, cpu_ids) = sides["card"], sides["cpu"]
     if len(card_ids) != len(cpu_ids) or not all(torch.equal(a, b)
                                                 for a, b in zip(card_ids, cpu_ids)):
-        fail(f"10c {name}: the expert ids of the {len(card_ids)} MoE calls differ from the "
-             f"CPU's {len(cpu_ids)}")
+        fail(f"{phase} {name}: the expert ids of the {len(card_ids)} MoE calls differ from "
+             f"the CPU's {len(cpu_ids)}")
     for rnd, (a, b) in enumerate(zip(card, cpu), 1):
         for j, ((ta, la), (tb, lb)) in enumerate(zip(a, b)):
             if ta != tb:
-                fail(f"10c {name} round {rnd} request {j}: tokens {ta} != {tb}")
+                fail(f"{phase} {name} round {rnd} request {j}: tokens {ta} != {tb}")
             if (la is None) != (lb is None) or (
                     la is not None and not np.allclose(la, lb, rtol=2e-5, atol=5e-5)):
-                fail(f"10c {name} round {rnd} request {j}: logits differ")
+                fail(f"{phase} {name} round {rnd} request {j}: logits differ")
     served = sum(t != [] for t, _ in card[-1])
-    print(f"phase 10c: reduced {name}: the first {MOE_PARITY_ROUNDS} rounds of {served} "
-          f"requests' tokens equal and logits within rtol 2e-5 / atol 5e-5 of the CPU copy; "
-          f"the expert ids of all {len(card_ids)} MoE calls equal")
+    print(f"phase {phase}: reduced {name}: the first {PARITY_ROUNDS} rounds of {served} "
+          f"requests' tokens equal and logits within rtol 2e-5 / atol 5e-5 of the CPU copy"
+          + (f"; the expert ids of all {len(card_ids)} MoE calls equal" if card_ids else ""))
     return {"requests": served, "moe_calls": len(card_ids)}
 
 
-def reduced_moe_train(dev) -> dict:
-    """Phase 10c: one ``build_train_step`` fake-quant step of reduced
-    DeepSeek-V3 (fp32, TF32 off) on the card and on the CPU from the same
-    state: loss, ce_loss, load_balance_loss and mtp_loss within rtol 1e-5."""
-    cfg = reduced(get_config("deepseek_v3_671b")).replace(
+def reduced_train(phase: str, name: str, dev) -> dict:
+    """One ``build_train_step`` fake-quant step of ``reduced(name)`` (fp32,
+    TF32 off) on the card and on the CPU from the same state: every metric
+    (loss, ce_loss and the MoE family's load_balance_loss and mtp_loss)
+    within rtol 1e-5, and the card's gradients finite."""
+    cfg = reduced(get_config(name)).replace(
         dtype="float32", quant=QuantConfig(mode="fake_quant", M=2, K_iters=4))
     opt = adamw(1e-2, eps=1e-3)
     host = train_steps.init_train_state(cfg, opt, device="cpu")
@@ -1967,16 +2015,21 @@ def reduced_moe_train(dev) -> dict:
     out = {}
     for side, d in (("cpu", torch.device("cpu")), ("card", dev)):
         state = cm.tree_map(lambda t: t.clone().to(d) if t.ndim else t.clone(), host)
-        _, met = train_steps.build_train_step(cfg, opt)(
-            state, cm.tree_map(lambda t: t.to(d), batch))
-        out[side] = {k: float(met[k]) for k in ("loss", "ce_loss", "load_balance_loss",
-                                                 "mtp_loss")}
+        on = cm.tree_map(lambda t: t.to(d), batch)
+        if side == "card":
+            grads, _ = train_steps.loss_and_grads(lambda p, b: api.loss_fn(cfg, p, b),
+                                                  state["params"], on)
+            if not all(bool(torch.isfinite(g).all()) for g in cm.tree_leaves(grads)):
+                fail(f"{phase} train step {name}: a gradient on the card is not finite")
+        _, met = train_steps.build_train_step(cfg, opt)(state, on)
+        out[side] = {k: float(v) for k, v in met.items() if k != "skipped"}
     for k, want in out["cpu"].items():
         if not math.isfinite(out["card"][k]) or \
                 not math.isclose(out["card"][k], want, rel_tol=1e-5):
-            fail(f"10c train step: {k} {out['card'][k]!r} on the card, {want!r} on the CPU")
-    print(f"phase 10c: a fake-quant train step of reduced DeepSeek-V3 on the card: "
-          f"{out['card']}, within rtol 1e-5 of the CPU's")
+            fail(f"{phase} train step {name}: {k} {out['card'][k]!r} on the card, {want!r} on "
+                 f"the CPU")
+    print(f"phase {phase}: a fake-quant train step of reduced {name} on the card: "
+          f"{out['card']}, within rtol 1e-5 of the CPU's; gradients finite")
     return out
 
 
@@ -1989,7 +2042,7 @@ def moe_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
         t1 = time.time()
         cfg = moe_config(name)
         params, build = build_moe_lm(cfg, dev)
-        weights = moe_weights(name, params)
+        weights = linear_weights(MOE_LINEARS[name], params)
         r = {"config": {k: getattr(cfg, k) for k in (
                  "name", "n_layers", "n_dense_layers", "d_model", "n_heads", "n_kv_heads",
                  "d_ff", "d_ff_expert", "n_experts", "top_k", "n_shared_experts", "vocab",
@@ -2012,10 +2065,394 @@ def moe_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         print(f"phase 10: {name} {r['seconds']:.1f} s")
-    res["reduced"] = {name: reduced_moe_parity(name, dev) for name in MOE_ARCHS}
-    res["train"] = reduced_moe_train(dev)
+    res["reduced"] = {name: reduced_parity("10c", name, dev) for name in MOE_ARCHS}
+    res["train"] = reduced_train("10c", "deepseek_v3_671b", dev)
     res["seconds"] = time.time() - t0
     print(f"phase 10: {res['seconds']:.1f} s; launches {res['launches']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the SSM (mamba2-2.7b) and hybrid (zamba2-7b) families
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2_2_7b", "zamba2_7b")
+SSM_LINEARS = {  # arch -> label -> the path of one packed linear of that shape
+    "mamba2_2_7b": {"in_proj": ("mamba_layers", "block", "in_proj"),
+                    "out_proj": ("mamba_layers", "block", "out_proj")},
+    "zamba2_7b": {"in_proj": ("mamba_layers", "block", "in_proj"),
+                  "out_proj": ("mamba_layers", "block", "out_proj"),
+                  "shared in_proj": ("shared", "in_proj"),
+                  "shared q/k/v/o": ("shared", "attn", "wq"),
+                  "shared gate/up": ("shared", "ffn", "w_gate"),
+                  "shared down": ("shared", "ffn", "w_down")},
+}
+SSM_MATMULS_PER_PASS = {  # matmul launches per admission and per decode group step
+    "mamba2_2_7b": 64 * 2,             # in_proj, out_proj per layer
+    "zamba2_7b": 81 * 2 + 13 * 8}      # + the shared block's in_proj, q/k/v/o, gate/up/down
+SSD_LENGTHS = (64, 256, 257)           # chunk 64, 256 and (257 is prime) 1
+
+
+def ssm_config(name: str):
+    """The published widths and depths, fp32, M=2 binary linears."""
+    return get_config(name).replace(dtype="float32",
+                                    quant=QuantConfig(mode="binary", M=2, K_iters=8))
+
+
+def build_ssm_lm(cfg, dev) -> tuple[dict, dict]:
+    """Phase 11: the weights drawn on the card from a seeded generator, each
+    Mamba2 layer (and the hybrid's shared block) binarized as soon as it is
+    drawn; the dynamics and norms stay fp32."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dt = cfg.torch_dtype
+    params = {"embed": cm.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device=dev)}
+    params["mamba_layers"], bin_s = stacked_layers(
+        lambda: {"norm": cm.init_rmsnorm(cfg.d_model, dt, device=dev),
+                 "block": ssm_mod.init_mamba2(gen, cfg, device=dev)}, cfg, cfg.n_layers)
+    if cfg.family == "hybrid":
+        t1 = time.perf_counter()
+        params["shared"] = api.binarize_model_params(cfg, hybrid_mod.init_shared(gen, cfg,
+                                                                                 device=dev))
+        torch.cuda.synchronize()
+        bin_s += time.perf_counter() - t1
+    params["final_norm"] = cm.init_rmsnorm(cfg.d_model, dt, device=dev)
+    torch.cuda.synchronize()
+    leaves = cm.tree_leaves(params)
+    info = {"build_s": time.perf_counter() - t0, "binarize_s": bin_s,
+            "params": api.count_params(cfg),
+            "table_gb": params["embed"]["table"].numel() * 4 / 1e9,
+            "packed_gb": sum(t.numel() for t in leaves if t.dtype == torch.uint8) / 1e9,
+            "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"phase 11: {cfg.name} {cfg.n_layers} Mamba2 layers"
+          + (f" + {hybrid_mod.n_attn_points(cfg)} shared-block points" if cfg.family == "hybrid"
+             else "") +
+          f", d_model {cfg.d_model}, state {cfg.ssm_state}, vocab {cfg.vocab}: "
+          f"{info['params']:,} params; built in {info['build_s']:.2f} s, of which binarize "
+          f"{bin_s:.2f} s; table {info['table_gb']:.3f} GB, packed {info['packed_gb']:.3f} GB; "
+          f"card memory in use {info['memory_allocated_gb']:.2f} GB (peak "
+          f"{info['max_memory_allocated_gb']:.2f} GB)")
+    return params, info
+
+
+def ssm_rows(cfg) -> list[int]:
+    """Every row count phase 11 gives the matmul kernel: T = 1 (token-wise
+    decode), the decode batch, each request's exact prefill length (the
+    recurrent families are not padded), the 16-token card check and the
+    64-token prompt (63 at admission, 64 in the bulk check)."""
+    return sorted({1, LM_BATCH, 16, LM_BUCKET - 1, LM_BUCKET,
+                   *(r.prompt.size - 1 for r in lm_requests(cfg))})
+
+
+def ssd_sequential(xh, dt, A, Bm, Cm, D):
+    """The plain float64 token-by-token recurrence (the JAX package's
+    ``tests/test_ssm.py`` ground truth), on the CPU; no path of the port
+    calls it.  Returns y and the state after the last token."""
+    xh, dt, A, Bm, Cm, D = (t.to("cpu", torch.float64) for t in (xh, dt, A, Bm, Cm, D))
+    b, l, h, p = xh.shape
+    rep = h // Bm.shape[2]
+    Bh, Ch = Bm.repeat_interleave(rep, dim=2), Cm.repeat_interleave(rep, dim=2)
+    state = torch.zeros((b, h, p, Bm.shape[-1]), dtype=torch.float64)
+    ys = []
+    for t in range(l):
+        state = state * torch.exp(dt[:, t] * A)[..., None, None] + \
+            (dt[:, t, :, None] * xh[:, t])[..., None] * Bh[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]) + D[None, :, None] * xh[:, t])
+    return torch.stack(ys, 1), state
+
+
+def ssd_vs_sequential(cfg, gen: torch.Generator, dev) -> dict:
+    """Phase 11a check 2: ``ssd_chunked`` at full width (heads, head_dim,
+    state, groups of ``cfg``) on the card against the float64 recurrence,
+    y and the final state within rtol 2e-4 / atol 2e-4 (the reference's),
+    at each length of ``SSD_LENGTHS`` with the chunk ``_mamba2_seq`` picks;
+    inputs drawn as the reference's test draws them."""
+    _, H, _ = ssm_mod._dims(cfg)
+    p, g, n = cfg.ssm_head_dim, cfg.ssm_ngroups, cfg.ssm_state
+    out = {}
+    for L in SSD_LENGTHS:
+        xh = torch.randn(1, L, H, p, generator=gen)
+        dt = F.softplus(torch.randn(1, L, H, generator=gen))
+        A = -torch.exp(torch.randn(H, generator=gen) * 0.5)
+        Bm = torch.randn(1, L, g, n, generator=gen) * 0.5
+        Cm = torch.randn(1, L, g, n, generator=gen) * 0.5
+        D = torch.ones(H)
+        chunk = min(cfg.ssm_chunk, L)
+        while L % chunk:
+            chunk -= 1
+        y, state = ssm_mod.ssd_chunked(*(t.to(dev) for t in (xh, dt, A, Bm, Cm, D)), chunk,
+                                       return_state=True)
+        ry, rstate = ssd_sequential(xh, dt, A, Bm, Cm, D)
+        errs = {}
+        for what, a, b in (("y", y, ry), ("state", state, rstate)):
+            a = a.cpu().double()
+            errs[what] = float((a - b).abs().max())
+            if not bool(torch.isfinite(a).all()) or \
+                    not torch.allclose(a, b, rtol=2e-4, atol=2e-4):
+                fail(f"11a SSD L={L} chunk {chunk}: {what} max |d| {errs[what]:.3g} vs the "
+                     f"float64 recurrence")
+        out[L] = {"chunk": chunk, "max_abs_err": errs}
+    print(f"phase 11: ssd_chunked at full width ({H} heads x {p}, state {n}) against the "
+          f"float64 recurrence, y and final state within rtol 2e-4 / atol 2e-4: " +
+          ", ".join(f"L={L} chunk {r['chunk']} max |d| {r['max_abs_err']}"
+                    for L, r in out.items()))
+    return out
+
+
+def rel_close(where: str, a: torch.Tensor, b: torch.Tensor) -> float:
+    """a within rtol 1e-4 / atol 1e-4·max|b| of b; returns max|d|/max|b|."""
+    a, b = a.cpu(), b.cpu()
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max())
+    if not bool(torch.isfinite(a).all()) or scale == 0.0 or \
+            not torch.allclose(a, b, rtol=1e-4, atol=1e-4 * scale):
+        fail(f"{where}: max |d| {err:.3g}, max |x| {scale:.3g}")
+    return err / scale
+
+
+def bulk_vs_tokenwise(cfg, params, dev) -> float:
+    """Phase 11 check 3: one 64-token prompt by bulk prefill and by 64
+    token-wise decode steps (B=1) on the card: every cache leaf (state,
+    pre-activation conv rows, the hybrid's KV) and the next step's logits
+    within rtol 1e-4 / atol 1e-4·max|x|.  Returns the worst max|d|/max|x|."""
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (1, LM_BUCKET + 1))).to(dev)
+    _, bulk = api.prefill(cfg, params, toks[:, :LM_BUCKET], max_len=LM_LEN)
+    step = api.init_cache(cfg, 1, LM_LEN, device=dev)
+    for t in range(LM_BUCKET):
+        api.decode_step(cfg, params, {"tokens": toks[:, t:t + 1], "cache": step,
+                                      "pos": torch.tensor([t], device=dev)})
+    worst = 0.0
+    for a, b in zip(cm.tree_leaves(bulk), cm.tree_leaves(step)):
+        worst = max(worst, rel_close(f"11 {cfg.name} bulk vs token-wise cache", a, b))
+    nxt = {"tokens": toks[:, LM_BUCKET:], "pos": torch.tensor([LM_BUCKET], device=dev)}
+    la, _ = api.decode_step(cfg, params, dict(nxt, cache=bulk))
+    lb, _ = api.decode_step(cfg, params, dict(nxt, cache=step))
+    worst = max(worst, rel_close(f"11 {cfg.name} bulk vs token-wise next logits", la, lb))
+    print(f"phase 11: {cfg.name} bulk prefill of {LM_BUCKET} tokens vs {LM_BUCKET} token-wise "
+          f"decode steps: every cache leaf and the next step's logits within rtol 1e-4 / atol "
+          f"1e-4·max|x|; worst max|d|/max|x| {worst:.3g}")
+    return worst
+
+
+def ssm_card_vs_plain(cfg, params) -> dict:
+    """Phase 11 check 4: the first 2 Mamba2 layers (mamba2) or the first 6
+    and the shared block after them (zamba2) at full width on the card
+    against the plain versions on a CPU copy."""
+    depth = 2 if cfg.family == "ssm" else cfg.hybrid_attn_every
+    card = {k: v for k, v in params.items() if k != "mamba_layers"}
+    card["mamba_layers"] = cm.tree_map(lambda t: t[:depth], params["mamba_layers"])
+    worst = card_vs_plain(f"11 {cfg.name}", cfg.replace(n_layers=depth), card)
+    print(f"phase 11: {cfg.name} cut to {depth} layers at full width, prefill of 16 tokens + 2 "
+          f"decode steps: card within rtol 1e-4 / atol 1e-4·max|x| of the plain versions on "
+          f"the CPU (logits and every cache leaf); worst max|d|/max|x| {worst:.3g}")
+    return {"layers": depth, "worst_rel_err": worst}
+
+
+def state_rows(cfg, cache, slot: int) -> list:
+    mamba = cache if cfg.family == "ssm" else cache["mamba"]
+    return [t[:, slot].clone() for t in cm.tree_leaves(mamba)]
+
+
+def slot_isolation(cfg, params) -> dict:
+    """Phase 11: slot 0's recurrent state ``torch.equal`` before and after
+    the 7 other requests' admissions, and across every decode group of the
+    first round that it is not in."""
+    reqs = lm_requests(cfg)
+    srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
+    srv.admit(reqs[0])
+    before = state_rows(cfg, srv.cache, 0)
+    for r in reqs[1:]:
+        srv.admit(r)
+    if not all(torch.equal(a, b) for a, b in zip(state_rows(cfg, srv.cache, 0), before)):
+        fail(f"11 {cfg.name}: another slot's admission changed slot 0's state")
+    real, checked = srv._decode, []
+
+    def watched(m_active, tokens, mask):
+        keep = None if mask[0] else state_rows(cfg, srv.cache, 0)
+        out = real(m_active, tokens, mask)
+        if keep is not None:
+            checked.append(all(torch.equal(a, b)
+                               for a, b in zip(state_rows(cfg, srv.cache, 0), keep)))
+        return out
+
+    srv._decode = watched
+    try:
+        srv.step()
+    finally:
+        del srv._decode        # the wrapper and the server form a reference cycle
+    if not checked or not all(checked):
+        fail(f"11 {cfg.name}: decode groups without slot 0 left its state {checked}")
+    print(f"phase 11: {cfg.name}: slot 0's state bit-exact across 7 admissions and "
+          f"{len(checked)} decode groups it is not in")
+    return {"groups_checked": len(checked)}
+
+
+def mixed_vs_alone(cfg, params, reqs: list) -> dict:
+    """Phase 11: each request served alone gives the tokens it got in the
+    8-slot mix.  Alone in a server of the same 8 slots (the same shapes for
+    every op, so only the update mask and the grouping differ) its logits
+    are within rtol 1e-5 / atol 1e-5; alone at ``max_batch=1`` (cuBLAS and
+    the row reductions then sum in another order) within rtol 2e-5 /
+    atol 5e-5, phase 7's.  Returns the largest |d| of each."""
+    worst = {}
+    for batch, tol in ((LM_BATCH, 1e-5), (1, None)):
+        worst[batch] = 0.0
+        for r in reqs:
+            solo = Server(cfg, params, max_batch=batch, max_len=LM_LEN)
+            again = Request(prompt=r.prompt.copy(), max_new_tokens=LM_NEW, m_active=r.m_active)
+            solo.admit(again)
+            solo.run_until_done()
+            kw = {} if tol is None else {"rtol": tol, "atol": tol}
+            same_stream(f"11 {cfg.name}: a request of {r.prompt.size} tokens, m_active "
+                        f"{r.m_active}, alone (max_batch {batch}) vs in the mix", again, r, **kw)
+            worst[batch] = max(worst[batch],
+                               float(np.abs(again.last_logits - r.last_logits).max()))
+    print(f"phase 11: {cfg.name}: each of the {len(reqs)} requests served alone gave the tokens "
+          f"it got in the mix; last logits max |d| {worst[LM_BATCH]:.3g} alone in 8 slots "
+          f"(rtol 1e-5 / atol 1e-5), {worst[1]:.3g} at max_batch 1 (rtol 2e-5 / atol 5e-5)")
+    return {"max_abs_d_8_slots": worst[LM_BATCH], "max_abs_d_1_slot": worst[1]}
+
+
+def serve_ssm(cfg, params, per_pass: int) -> dict:
+    """Phase 11's main path: 8 requests through ``Server`` (launches held to
+    ``per_pass`` per admission and per decode group step), a second run
+    bit-equal, each request alone equal to the mix, and slot isolation."""
+    reqs, srv, rounds, launches, serve_s = serve_twice("11", cfg, params, per_pass)
+    print(f"phase 11: {cfg.name} served {len(reqs)} requests (prompts "
+          f"{[r.prompt.size for r in reqs]}, m_active None/1/per-layer) in {rounds} rounds, "
+          f"{serve_s:.2f} s; stats {srv.stats}; {per_pass} matmul launches per admission and "
+          f"per decode group step; a second run gave the same tokens and bit-equal logits")
+    return {"stats": srv.stats, "rounds": rounds, "serve_s": serve_s, "launches": launches,
+            "per_pass": per_pass, "prompt_lens": [int(r.prompt.size) for r in reqs],
+            "out_tokens": [r.out_tokens for r in reqs],
+            "alone": mixed_vs_alone(cfg, params, reqs),
+            "isolation": slot_isolation(cfg, params)}
+
+
+def ssm_step_work(cfg, params, srv) -> dict:
+    """Bytes and operations one decode step at 8 slots must move and do:
+    every weight read once (the table in the LM head), the 8 embedding
+    rows, the recurrent state and conv rows read and written, the KV caches
+    read and one row per slot and point written, the logits written;
+    operations 2 per MAC of the linears at 8 tokens (packed ones
+    fp-equivalent), of the state update and readout, of attention over the
+    whole cache and of the LM head."""
+    B, d = LM_BATCH, cfg.d_model
+    nbytes = sum(t.numel() * t.element_size() for t in cm.tree_leaves(params))
+    nbytes += B * d * 4 + B * cfg.vocab * 4
+    mamba = srv.cache if cfg.family == "ssm" else srv.cache["mamba"]
+    nbytes += 2 * sum(t.numel() * t.element_size() for t in cm.tree_leaves(mamba))
+    _, H, conv_ch = ssm_mod._dims(cfg)
+    macs = sum(B * t[:, 0].numel() * 8 if t.ndim == 4 else B * t[0].numel() * 8
+               for t in cm.tree_leaves(params) if t.dtype == torch.uint8)
+    macs += B * cfg.vocab * d
+    macs += cfg.n_layers * B * (2 * H * cfg.ssm_head_dim * cfg.ssm_state
+                                + cfg.ssm_conv_width * conv_ch)
+    if cfg.family == "hybrid":
+        kv = srv.cache["attn"]
+        nbytes += sum(t.numel() * t.element_size() for t in cm.tree_leaves(kv))
+        nbytes += sum(t[:, :, 0].numel() * t.element_size() for t in cm.tree_leaves(kv))
+        macs += hybrid_mod.n_attn_points(cfg) * 2 * B * cfg.n_heads * cfg.resolved_head_dim \
+            * LM_LEN
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * macs / FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": 2 * macs, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def self_device_us(prof, pred, ops_named=None) -> float:
+    """Self device time (children excluded) of the profiled ops (those in
+    ``ops_named``, or all) whose input shapes satisfy ``pred``."""
+    return sum(e.self_device_time_total for e in prof.key_averages(group_by_input_shape=True)
+               if (ops_named is None or e.key in ops_named)
+               and pred([tuple(s) for s in e.input_shapes if s]))
+
+
+def ssm_timing(cfg, params, dev, out_dir: Path, profile_name: str) -> dict:
+    """Phase 11 timings: admission of a 64-token prompt, a decode step at 8
+    slots beside its bound, and a profiler window of 3 decode steps: device
+    busy, idle share, and the device time of the matmul kernel, of the ops
+    on the recurrent state (update, readout, mask) and of the LM head."""
+    step, srv = decode_timing("phase 11", cfg, params)
+    work = ssm_step_work(cfg, params, srv)
+    step["work"] = work
+    print(f"phase 11: {cfg.name} decode step bound {work['bound_ms']:.3f} ms "
+          f"({work['bound_by']}: {work['bytes'] / 1e9:.2f} GB, {work['flops'] / 1e9:.1f} GFLOP) "
+          f"against {step['decode_step_events_ms']:.3f} ms (CUDA events)")
+    from torch.profiler import ProfilerActivity, profile, schedule
+    path = out_dir / f"trace_{profile_name}.json"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=3, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
+        for _ in range(4):
+            srv.step()
+            torch.cuda.synchronize()
+            prof.step()
+    trace = path.read_text()
+    with gzip.open(path.with_suffix(".json.gz"), "wt") as f:   # keeps chiprun_out/ small
+        f.write(trace)
+    path.unlink()
+    path = path.with_suffix(".json.gz")
+    split = device_split(json.loads(trace)["traceEvents"])
+    pn = (cfg.ssm_head_dim, cfg.ssm_state)
+    parts = {
+        "binary_matmul": sum(us for n, us in split["device_us_by_name"].items()
+                             if "binary_matmul" in n),
+        "state_ops": self_device_us(prof, lambda ss: any(len(s) >= 3 and s[-2:] == pn
+                                                         for s in ss)),
+        "lm_head": self_device_us(prof, lambda ss: any(cfg.vocab in s for s in ss),
+                                  ("aten::mm", "aten::bmm", "aten::addmm"))}
+    if parts["binary_matmul"] == 0 or parts["lm_head"] == 0 or parts["state_ops"] == 0:
+        fail(f"11 profile {cfg.name}: device time by part {parts}")
+    split.update({f"{k}_us_per_step": v / 3 for k, v in parts.items()})
+    print(f"phase 11: profiler over 3 decode steps: window {split['window_us'] / 3e3:.4f} ms "
+          f"per step, device busy {split['busy_us'] / 3e3:.4f} ms, idle share "
+          f"{split['idle_share']:.4f}; per step: " + ", ".join(
+              f"{k} {v / 3e3:.4f} ms" for k, v in parts.items()) +
+          f"; trace {path.relative_to(ROOT)}")
+    for name, us in list(split["device_us_by_name"].items())[:10]:
+        print(f"  {us / 3e3:.5f} ms per step  {name[:110]}")
+    return {**step, "profile": split}
+
+
+def ssm_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
+    """Phase 11: mamba2-2.7b (a) and zamba2-7b (b) at their published widths
+    and depths, then the reduced configs against a CPU copy (c)."""
+    t0 = time.time()
+    res = {"launches": {k: 0 for k in TPU_KERNELS}}
+    for name in SSM_ARCHS:
+        t1 = time.time()
+        cfg = ssm_config(name)
+        params, build = build_ssm_lm(cfg, dev)
+        weights = linear_weights(SSM_LINEARS[name], params)
+        r = {"config": {k: getattr(cfg, k) for k in (
+                 "name", "family", "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+                 "d_ff", "vocab", "ssm_state", "ssm_expand", "ssm_head_dim", "ssm_ngroups",
+                 "ssm_conv_width", "ssm_chunk", "hybrid_attn_every", "dtype")} | {"M": 2},
+             "build": build,
+             "max_abs_err": check_linear_kernels(f"phase 11 {name}", weights, ssm_rows(cfg),
+                                                 gen, dev)}
+        if cfg.family == "ssm":
+            r["ssd"] = ssd_vs_sequential(cfg, gen, dev)
+        r["bulk_vs_tokenwise"] = bulk_vs_tokenwise(cfg, params, dev)
+        r["card_vs_plain"] = ssm_card_vs_plain(cfg, params)
+        r["serve"] = serve_ssm(cfg, params, SSM_MATMULS_PER_PASS[name])
+        r["timing"] = ssm_timing(cfg, params, dev, out_dir, name.split("_")[0])
+        r["linears"] = time_linears(f"phase 11 {name}", weights, gen, dev)
+        r["seconds"] = time.time() - t1
+        for k, v in r["serve"]["launches"].items():
+            res["launches"][k] += v
+        res[name] = r
+        del params, weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 11: {name} {r['seconds']:.1f} s")
+    res["reduced"] = {name: reduced_parity("11c", name, dev) for name in SSM_ARCHS}
+    res["train"] = {name: reduced_train("11c", name, dev) for name in SSM_ARCHS}
+    res["seconds"] = time.time() - t0
+    print(f"phase 11: {res['seconds']:.1f} s; launches {res['launches']}")
     return res
 
 
@@ -2100,6 +2537,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = moe_phase(gen, dev, out_dir)
     moe_launches = moe["launches"]
+    gc.collect()                      # phase 10's models are gone: their memory goes back
+    torch.cuda.empty_cache()
+    ssm = ssm_phase(gen, dev, out_dir)
+    ssm_launches = ssm["launches"]
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -2110,9 +2551,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (launches[name] + lm["serve"]["launches"][name]
                          + train["cnn_a"]["launches"][name] + fuzz_launches[name]
-                         + soak_launches[name] + moe_launches[name]),
-            "max_abs_err": max(max_err[name], lm["max_abs_err"] if name == "binary_matmul"
-                               else 0.0),
+                         + soak_launches[name] + moe_launches[name] + ssm_launches[name]),
+            "max_abs_err": max([max_err[name]] + (
+                [lm["max_abs_err"]] + [moe[a]["max_abs_err"] for a in MOE_ARCHS]
+                + [ssm[a]["max_abs_err"] for a in SSM_ARCHS] if name == "binary_matmul"
+                else [])),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": tot["library_ms"], "instr_ms": tot["instr_ms"],
@@ -2120,18 +2563,19 @@ def main() -> int:
             "lm_launches": lm["serve"]["launches"][name],
             "train_launches": train["cnn_a"]["launches"][name],
             "fuzz_launches": fuzz_launches[name], "soak_launches": soak_launches[name],
-            "moe_launches": moe_launches[name]})
+            "moe_launches": moe_launches[name], "ssm_launches": ssm_launches[name]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
          "kernels": kernels, "layers": rows, "forward": forward, "profiles": profiles,
-         "serve": serve, "lm": lm, "train": train, "verify": verify, "moe": moe},
+         "serve": serve, "lm": lm, "train": train, "verify": verify, "moe": moe, "ssm": ssm},
         indent=1))
     print("timings: ms, plain_ms, library_ms and bound_ms sum one forward of CNN-A "
           "(batch 64) and one of MobileNetV1-224 (batch 16); launches counts phases 2 "
           "and 3 (three calls of each network), phase 7's serving of gemma-2b, phase "
-          "8a's execute of the retrained CNN-A, phase 9a's fuzz, phase 9c's soaks and phase "
-          "10's serving of DeepSeek-V3 and grok-1; the LM shapes' times are under \"lm\" "
-          "and \"moe\" in chiprun_out/chip_smoke.json")
+          "8a's execute of the retrained CNN-A, phase 9a's fuzz, phase 9c's soaks, phase "
+          "10's serving of DeepSeek-V3 and grok-1 and phase 11's of mamba2-2.7b and zamba2-7b; "
+          "the LM shapes' times are under \"lm\", \"moe\" and \"ssm\" in "
+          "chiprun_out/chip_smoke.json")
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

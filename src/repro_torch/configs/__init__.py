@@ -1,1 +1,2 @@
-"""Architecture configs of the port (dense family; see ``base.py``)."""
+"""Architecture configs of the port (dense, MoE, SSM and hybrid families;
+see ``base.py``)."""

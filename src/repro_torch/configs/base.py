@@ -3,12 +3,13 @@
 Every ported architecture has one ``configs/<id>.py`` exporting ``CONFIG``
 (the JAX package's file with its import pointed here); ``get_config(name)``
 resolves it and ``reduced(cfg)`` shrinks it for CPU tests.  ``ArchConfig``
-holds the JAX package's fields that the dense and MoE families read (MoE,
-MLA, MTP), under the same names and defaults, and the two training knobs
-(``remat``, ``onehot_loss``); the SSM, hybrid, enc-dec and VLM fields come
-with the slices that port those families (ROADMAP item 4), and the JAX
-package's sharding knobs with ``distributed/``.  The dry run's shape cells and input specs (``SHAPES``,
-``input_specs``, ``cells``) are not ported yet (ROADMAP item 14).
+holds the JAX package's fields that the dense, MoE, SSM (Mamba2) and hybrid
+(Zamba2) families read, under the same names and defaults, and the two
+training knobs (``remat``, ``onehot_loss``); the enc-dec and VLM fields come
+with the slice that ports those families (ROADMAP item 12e), and the JAX
+package's sharding knobs with ``distributed/``.  The dry run's shape cells
+and input specs (``SHAPES``, ``input_specs``, ``cells``) are not ported yet
+(ROADMAP item 14).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 from repro_torch.core.binlinear import QuantConfig
 
 ARCH_IDS = ["gemma_2b", "qwen3_14b", "h2o_danube_1_8b", "codeqwen15_7b",
-            "grok_1_314b", "deepseek_v3_671b"]
+            "zamba2_7b", "mamba2_2_7b", "grok_1_314b", "deepseek_v3_671b"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +59,15 @@ class ArchConfig:
     v_head_dim: int = 128
     # --- MTP (DeepSeek) ---
     mtp_depth: int = 0
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_ngroups: int = 1
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256
+    # --- hybrid (Zamba2) ---
+    hybrid_attn_every: int = 6       # one shared attn block per N ssm blocks
     # --- numerics / quant ---
     dtype: str = "bfloat16"
     quant: QuantConfig = QuantConfig(mode="dense")
@@ -82,7 +92,7 @@ def get_config(name: str) -> ArchConfig:
     if mod_name not in ARCH_IDS:
         raise NotImplementedError(
             f"config {name!r} is not in the port yet (ported: {ARCH_IDS}; the "
-            "ssm, hybrid, enc-dec and VLM families wait for ROADMAP items 12c-12e)")
+            "enc-dec and VLM families wait for ROADMAP item 12e)")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 
@@ -102,4 +112,8 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
                   qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
     if cfg.mtp_depth:
         kw.update(mtp_depth=1)
+    if cfg.ssm_state:
+        kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16, n_layers=4)
+    if cfg.family == "hybrid":
+        kw.update(hybrid_attn_every=2, n_layers=4)
     return cfg.replace(**kw)

@@ -9,9 +9,12 @@ normalized level count and runs one batched decode per group.  The rows a
 grouped decode writes for non-group slots are *transient*: they land at a
 position the owning slot has not attended past yet, and that slot's next
 real decode overwrites the row before attending to it (the MLA latent
-cache too).  So the dense and MoE families need no ``update_mask``; the
-JAX package's mask, which gates recurrent state, comes with the
-ssm/hybrid families (ROADMAP 12c/12d).
+cache and the hybrid's attention caches too).  Recurrent state has no such
+invariant: every decode passes a device ``update_mask`` ([B] bool) that is
+True on the rows being served (the group's, or the one slot a token-wise
+admission warms), and the SSM and hybrid families write back the state of
+those rows only, so other slots' state stays bit for bit; the dense and
+MoE families ignore it.
 
 Admission runs **bulk prefill**: one ``api.prefill`` forward over the
 prompt (B=1) emits the decode cache, which ``api.scatter_cache`` writes
@@ -25,7 +28,8 @@ level count; the port runs eagerly and keeps one specialised config per
 level count instead (``cache_sizes`` counts them).  The cache and the
 params live on the server's device (the params'); tokens and positions are
 staged there each step, and only the argmax tokens and ``last_logits``
-come back to the host.  The dense and MoE families are ported.
+come back to the host.  The dense, MoE, SSM and hybrid families are
+ported.
 
 A MoE layer's routed experts have a capacity per dispatch group, so a
 request's stream can depend on its neighbours, as in the JAX package: a
@@ -129,8 +133,9 @@ class Server:
     def _pad_safe(self) -> bool:
         """Right-padding the prefill is exact only for positional-KV-only
         caches: causal attention keeps rows < L pad-independent and the pad
-        rows at positions >= L are transient.  A rolling SWA ring would let
-        pad rows wrap onto live ones."""
+        rows at positions >= L are transient.  Recurrent state (ssm/hybrid)
+        would absorb the pads into the final state; a rolling SWA ring would
+        let pad rows wrap onto live ones."""
         return (self.cfg.family in ("dense", "moe")
                 and self.cfg.sliding_window is None)
 
@@ -244,10 +249,11 @@ class Server:
             for t in prompt[:-1]:
                 self._step_one(slot, int(t), req.m_active)
 
-    def _decode(self, m_active, tokens: np.ndarray) -> torch.Tensor:
-        """One batched decode of every row; returns logits [B, V] on the device."""
+    def _decode(self, m_active, tokens: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        """One batched decode of every row, recurrent state written back on
+        the rows of ``mask`` only; returns logits [B, V] on the device."""
         batch = {"tokens": self._to_device(tokens), "pos": self._to_device(self.pos),
-                 "cache": self.cache}
+                 "cache": self.cache, "update_mask": self._to_device(mask)}
         logits, self.cache = api.decode_step(
             self._specialised(self._decode_cfgs, m_active), self.params, batch)
         return logits[:, 0]
@@ -256,7 +262,9 @@ class Server:
         B = self.max_batch
         tokens = np.zeros((B, 1), np.int32)
         tokens[slot, 0] = token
-        logits = self._decode(m_active, tokens)
+        mask = np.zeros((B,), bool)
+        mask[slot] = True
+        logits = self._decode(m_active, tokens, mask)
         self.pos[slot] += 1
         self.stats["tokenwise_prefill_steps"] += 1
         return int(torch.argmax(logits[slot]))
@@ -276,10 +284,12 @@ class Server:
             groups.setdefault(self._norm_m(self.slots[i].m_active), []).append(i)
         for m_active, idxs in groups.items():
             tokens = np.zeros((B, 1), np.int32)
+            mask = np.zeros((B,), bool)
             for i in idxs:
                 r = self.slots[i]
                 tokens[i, 0] = (r.out_tokens[-1] if r.out_tokens else int(r.prompt[-1]))
-            logits = self._decode(m_active, tokens)
+                mask[i] = True
+            logits = self._decode(m_active, tokens, mask)
             self.stats["decode_steps"] += 1
             rows = torch.tensor(idxs, device=self.device)
             picked = logits[rows]

@@ -1,4 +1,5 @@
-"""Unified model API, dense and MoE families (port of ``repro/models/api.py``).
+"""Unified model API, dense, MoE, SSM and hybrid families (port of
+``repro/models/api.py``).
 
 The surface the serving runtime, tests and ``chip_smoke.py`` use:
 
@@ -12,24 +13,29 @@ The surface the serving runtime, tests and ``chip_smoke.py`` use:
   binarize_model_params(cfg, params)     -> packed deployment tree
   count_params(cfg, active_only=False)   -> int
 
-The dense and MoE families (MLA, leading dense layers, MTP) are ported;
-every other family raises ``NotImplementedError`` naming its ROADMAP item.
+The dense and MoE families (MLA, leading dense layers, MTP), the SSM family
+(a Mamba2 stack) and the hybrid (Zamba2) are ported; the enc-dec and VLM
+families raise ``NotImplementedError`` naming their ROADMAP item.  The SSM
+and hybrid families unembed with the embedding table whatever
+``tie_embeddings`` says, as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import binlinear as bl
+from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
+from repro_torch.models import hybrid as hybrid_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
 
-_PORTED = ("dense", "moe")
+_PORTED = ("dense", "moe", "ssm", "hybrid")
 _WAITING = {  # family -> the ROADMAP item that ports it
-    "ssm": "12c (ssm.py)",
-    "hybrid": "12d (hybrid.py)",
     "encdec": "12e (encdec.py and the VLM prefix)",
     "vlm": "12e (encdec.py and the VLM prefix)",
 }
@@ -48,13 +54,46 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, *, device="cuda") -> dict
     """fp params drawn from ``gen`` (on the generator's device), placed on
     ``device``."""
     _ported_only(cfg)
-    return tf_mod.init_lm(gen, cfg, device=resolve_device(device))
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return _init_ssm_lm(gen, cfg, dev)
+    if cfg.family == "hybrid":
+        return hybrid_mod.init_hybrid(gen, cfg, device=dev)
+    return tf_mod.init_lm(gen, cfg, device=dev)
+
+
+def _init_ssm_lm(gen: torch.Generator, cfg: ArchConfig, dev) -> dict:
+    dt = cfg.torch_dtype
+    return {"embed": cm.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device=dev),
+            "mamba_layers": ssm_mod.init_mamba_layers(gen, cfg, device=dev),
+            "final_norm": cm.init_rmsnorm(cfg.d_model, dt, device=dev)}
+
+
+def _ssm_layer(layer, x, cfg_i: ArchConfig):
+    h = cm.rms_norm(layer["norm"], x, cfg_i.norm_eps)
+    return x + ssm_mod.mamba2_forward(layer["block"], h, cfg_i)
+
+
+def _ssm_hidden(params, cfg: ArchConfig, tokens):
+    """The Mamba2 stack's final hidden states; ``cfg.remat`` recomputes each
+    layer in backward, as ``transformer._run_stack`` does."""
+    x = cm.embed(params["embed"], tokens).to(cfg.torch_dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        args = (cm.tree_index(params["mamba_layers"], i), x, cm.layer_quant_cfg(cfg, i))
+        x = checkpoint(_ssm_layer, *args, use_reentrant=False) if remat else _ssm_layer(*args)
+    return cm.rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 
 def forward(cfg: ArchConfig, params, batch):
     """Full-sequence forward -> (logits [B, S, V], aux dict)."""
     _ported_only(cfg)
-    return tf_mod.lm_forward(params, cfg, batch["tokens"])
+    tokens = batch["tokens"]
+    if cfg.family == "ssm":
+        return cm.unembed(params["embed"], _ssm_hidden(params, cfg, tokens)), {}
+    if cfg.family == "hybrid":
+        return hybrid_mod.hybrid_forward(params, cfg, tokens), {}
+    return tf_mod.lm_forward(params, cfg, tokens)
 
 
 def _nll(logits, labels):
@@ -69,8 +108,11 @@ def loss_fn(cfg: ArchConfig, params, batch):
     form), else log-softmax and a gather."""
     _ported_only(cfg)
     tokens, labels = batch["tokens"], batch["labels"].long()
-    hidden, aux = tf_mod.lm_hidden(params, cfg, tokens)
-    logits = tf_mod.lm_logits(params, cfg, hidden)
+    if cfg.family in ("ssm", "hybrid"):
+        logits, aux = forward(cfg, params, batch)
+    else:
+        hidden, aux = tf_mod.lm_hidden(params, cfg, tokens)
+        logits = tf_mod.lm_logits(params, cfg, hidden)
     if cfg.onehot_loss:
         lg = logits.to(torch.float32)
         onehot = F.one_hot(labels, lg.shape[-1]).to(lg.dtype)
@@ -99,22 +141,50 @@ def loss_fn(cfg: ArchConfig, params, batch):
 
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     _ported_only(cfg)
+    if cfg.family == "ssm":
+        return cm.tree_map(lambda s: attn.CacheSpec((cfg.n_layers, *s.shape), s.dtype),
+                           ssm_mod.mamba2_cache_specs(cfg, batch))
+    if cfg.family == "hybrid":
+        return hybrid_mod.hybrid_cache_specs(cfg, batch, max_len)
     return tf_mod.lm_cache_specs(cfg, batch, max_len)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda") -> dict:
-    _ported_only(cfg)
-    return tf_mod.init_lm_cache(cfg, batch, max_len, device=resolve_device(device))
+    """Zeros (-1 for a sliding window's int32 ``slot_pos``) on ``device``."""
+    return attn.init_from_specs(cache_specs(cfg, batch, max_len), device)
 
 
 def decode_step(cfg: ArchConfig, params, batch):
     """batch: tokens [B,1], pos [B], cache -> (logits [B,1,V], cache), the
-    cache written in place.  The JAX package's ``batch["update_mask"]``
-    gates recurrent state only (ssm/hybrid, ROADMAP items 12c/12d);
-    positional KV caches need none (see ``launch/serve.py``'s transient-row
-    invariant), so the dense and MoE families take no mask."""
+    cache written in place.  An optional ``batch["update_mask"]`` ([B] bool)
+    gates the *recurrent* state write-back per row for ssm/hybrid (rows
+    outside a serving group keep their state bit for bit; their logits are
+    garbage and ignored).  Positional KV caches need no mask (see
+    ``launch/serve.py``'s transient-row invariant), so the dense and MoE
+    families ignore it."""
     _ported_only(cfg)
-    return tf_mod.lm_decode_step(params, cfg, batch["tokens"], batch["pos"], batch["cache"])
+    tokens, pos, cache = batch["tokens"], batch["pos"], batch["cache"]
+    if cfg.family == "ssm":
+        return _ssm_decode(params, cfg, tokens, cache, update_mask=batch.get("update_mask"))
+    if cfg.family == "hybrid":
+        return hybrid_mod.hybrid_decode_step(params, cfg, tokens, pos, cache,
+                                             update_mask=batch.get("update_mask"))
+    return tf_mod.lm_decode_step(params, cfg, tokens, pos, cache)
+
+
+def _ssm_decode(params, cfg: ArchConfig, tokens, cache, update_mask=None):
+    """Each layer's cache slice is a view of the stacked cache, written in
+    place by ``mamba2_decode``."""
+    x = cm.embed(params["embed"], tokens).to(cfg.torch_dtype)
+    for i in range(cfg.n_layers):
+        cfg_i = cm.layer_quant_cfg(cfg, i)
+        layer = cm.tree_index(params["mamba_layers"], i)
+        h = cm.rms_norm(layer["norm"], x, cfg_i.norm_eps)
+        d, _ = ssm_mod.mamba2_decode(layer["block"], h, cfg_i, cm.tree_index(cache, i),
+                                     update_mask=update_mask)
+        x = x + d
+    x = cm.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return cm.unembed(params["embed"], x), cache
 
 
 # families with a bulk prefill in the JAX package; the serving runtime
@@ -127,7 +197,25 @@ def prefill(cfg: ArchConfig, params, tokens, *, max_len: int):
     like ``cache_specs(cfg, B, max_len)`` with positions 0..S-1 populated),
     the same state as S ``decode_step`` calls in one forward."""
     _ported_only(cfg)
+    if cfg.family == "ssm":
+        return _ssm_prefill(params, cfg, tokens)
+    if cfg.family == "hybrid":
+        return hybrid_mod.hybrid_prefill(params, cfg, tokens, max_len=max_len)
     return tf_mod.lm_prefill(params, cfg, tokens, max_len=max_len)
+
+
+def _ssm_prefill(params, cfg: ArchConfig, tokens):
+    x = cm.embed(params["embed"], tokens).to(cfg.torch_dtype)
+    caches = []
+    for i in range(cfg.n_layers):
+        cfg_i = cm.layer_quant_cfg(cfg, i)
+        layer = cm.tree_index(params["mamba_layers"], i)
+        h = cm.rms_norm(layer["norm"], x, cfg_i.norm_eps)
+        d, c = ssm_mod.mamba2_prefill(layer["block"], h, cfg_i)
+        x = x + d
+        caches.append(c)
+    x = cm.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return cm.unembed(params["embed"], x), cm.stack_trees(caches)
 
 
 def scatter_cache(cfg: ArchConfig, cache, slot: int, part):
@@ -200,12 +288,27 @@ def _ffn_params(cfg: ArchConfig, d_ff: int) -> int:
     return (3 if cfg.activation in ("swiglu", "geglu") else 2) * cfg.d_model * d_ff
 
 
+def _mamba_layer_params(cfg: ArchConfig) -> int:
+    """One {norm, block} entry of ``mamba_layers``."""
+    d_inner, H, conv_ch = ssm_mod._dims(cfg)
+    proj_out = 2 * d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state + H
+    return (cfg.d_model * proj_out + d_inner * cfg.d_model          # in_proj, out_proj
+            + (cfg.ssm_conv_width + 1) * conv_ch + 3 * H + d_inner  # conv, A_log/D/dt_bias, norm
+            + cfg.d_model)                                          # the layer's norm
+
+
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """Parameter count of ``init_params(cfg)``, from the config alone;
     ``active_only`` leaves out the routed experts a token does not visit
-    (the JAX package's rule: all but ``top_k`` of them in each MoE layer)."""
+    (the JAX package's rule: all but ``top_k`` of them in each MoE layer).
+    The SSM and hybrid families hold one table, tied or not."""
     _ported_only(cfg)
     d = cfg.d_model
+    if cfg.family in ("ssm", "hybrid"):
+        total = cfg.n_layers * _mamba_layer_params(cfg) + cfg.vocab * d + d
+        if cfg.family == "hybrid":       # the shared block: in_proj, ln1, ln2, attn, ffn
+            total += 2 * d * d + 2 * d + _attn_params(cfg) + _ffn_params(cfg, cfg.d_ff)
+        return total
     Fe = cfg.d_ff_expert or cfg.d_ff
     attn = _attn_params(cfg) + 2 * d                       # + the two layer norms
     dense = attn + _ffn_params(cfg, cfg.d_ff or (cfg.d_ff_expert or 128))

@@ -66,6 +66,15 @@ def rms_norm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * params["scale"].to(torch.float32)).to(x.dtype)
 
 
+def rms_norm_gated(params, x: torch.Tensor, z: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: norm(x * silu(z)) * scale, in fp32, cast back
+    to x's dtype."""
+    xf = x.to(torch.float32) * torch.nn.functional.silu(z.to(torch.float32))
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embedding
 # ---------------------------------------------------------------------------

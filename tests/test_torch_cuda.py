@@ -283,14 +283,20 @@ def test_golden_checkpoint_and_service_on_the_card(card, tmp_path):
     (7168, 1536), (1536, 24576), (7168, 576), (16384, 7168),       # DeepSeek-V3 MLA
     (7168, 18432), (18432, 7168), (7168, 2048), (2048, 7168),      # dense FFN, shared expert
     (14336, 7168),                                                 # MTP proj
-    (6144, 6144), (6144, 1024)])                                   # grok-1 q/o, k/v
+    (6144, 6144), (6144, 1024),                                    # grok-1 q/o, k/v
+    (2560, 10576), (5120, 2560),                                   # mamba2 in/out_proj
+    (3584, 14576), (7168, 3584),                                   # zamba2 in/out, shared in
+    (3584, 3584), (3584, 14336), (14336, 3584)])                   # zamba2 shared attn, FFN
 @pytest.mark.parametrize("T", [1, 8])
 def test_binary_matmul_kernel_at_the_lm_shapes(card, T, K, N):
     """The LM configs' linears at full width, at decode's row counts,
     m_active 1 and 2: gemma-2b's (q/o, k/v under MQA, gate/up, down), the K
     of danube and qwen3 that ``reduced()`` shrinks (2560, 6912, 17408),
     DeepSeek-V3's (MLA wdq/wuq/wdkv/wo, dense and shared-expert FFN, MTP
-    proj) and grok-1's attention; K = 16384 cuts into chunks of 2048."""
+    proj), grok-1's attention, mamba2-2.7b's and zamba2-7b's Mamba2
+    projections (N = 10576 and 14576 leave a 16-column tail past the
+    32-column blocks) and zamba2's shared block; K = 16384 cuts into chunks
+    of 2048."""
     gen = torch.Generator().manual_seed(T + K + N)
     x = torch.randn(T, K, generator=gen).to(card)
     packed = bz.pack_bits(_signs(gen, (2, K, N))).to(card)
@@ -304,27 +310,30 @@ def test_binary_matmul_kernel_at_the_lm_shapes(card, T, K, N):
         assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
-def test_lm_server_on_the_card_matches_the_cpu(card):
-    """A reduced gemma served on the card and on the CPU (plain versions):
-    the same tokens, logits within rtol 2e-5 / atol 5e-5 (the JAX serving
-    tests' tolerance), 2 layers x 7 matmul launches per decode group step."""
+def _serve_card_vs_cpu(card, arch: str, per_pass: int):
+    """``reduced(arch)`` with M=2 binary linears served on the card and on
+    the CPU (plain versions): 4 requests through ``Server(max_batch=3)``
+    with m_active None, 1 and a per-layer schedule; the same tokens and
+    stats, logits within rtol 2e-5 / atol 5e-5 (the JAX serving tests'
+    tolerance), ``per_pass`` matmul launches per decode group step."""
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import api, common as cm
 
     qc = QuantConfig(mode="binary", M=2, K_iters=2)
-    cfg = reduced(get_config("gemma_2b")).replace(dtype="float32", quant=qc)
+    cfg = reduced(get_config(arch)).replace(dtype="float32", quant=qc)
     host = api.binarize_model_params(
         cfg, api.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"))
     params = {"cpu": host, "cuda": cm.tree_map(lambda t: t.to(card), host)}
     rng = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).numpy().astype("int32")
                for n in (5, 9, 3, 12)]
+    sched = tuple(1 + i % 2 for i in range(cfg.n_layers))
     served = {}
     for where, p in params.items():
         srv = Server(cfg, p, max_batch=3, max_len=32)
         reqs = [Request(prompt=pr, max_new_tokens=5, m_active=m)
-                for pr, m in zip(prompts, (None, 1, (1, 2), None))]
+                for pr, m in zip(prompts, (None, 1, sched, None))]
         pending = list(reqs)
         while pending or any(s is not None for s in srv.slots):
             while pending and srv.admit(pending[0]):
@@ -334,53 +343,66 @@ def test_lm_server_on_the_card_matches_the_cpu(card):
             if where == "cuda":
                 torch.cuda.synchronize()
                 assert ops.launch_counts()["binary_matmul"] - before == \
-                    14 * (srv.stats["decode_steps"] - steps)
+                    per_pass * (srv.stats["decode_steps"] - steps)
         served[where] = (reqs, srv.stats)
     assert served["cuda"][1] == served["cpu"][1]
     for a, b in zip(served["cuda"][0], served["cpu"][0]):
         assert a.out_tokens == b.out_tokens
         torch.testing.assert_close(torch.from_numpy(a.last_logits),
                                    torch.from_numpy(b.last_logits), rtol=2e-5, atol=5e-5)
+
+
+def test_lm_server_on_the_card_matches_the_cpu(card):
+    """A reduced gemma: 2 layers x 7 matmul launches per decode group step."""
+    _serve_card_vs_cpu(card, "gemma_2b", 14)
 
 
 def test_moe_server_on_the_card_matches_the_cpu(card):
     """A reduced DeepSeek-V3 (MLA, 1 leading dense layer + 1 MoE layer with a
-    shared expert, M=2 binary linears) served on the card and on the CPU:
-    the same tokens, logits within rtol 2e-5 / atol 5e-5, the same stats,
-    and 2 layers x 7 matmul launches per decode group step."""
-    from repro_torch.configs.base import get_config, reduced
-    from repro_torch.launch.serve import Request, Server
-    from repro_torch.models import api, common as cm
+    shared expert): 2 layers x 7 matmul launches per decode group step."""
+    _serve_card_vs_cpu(card, "deepseek_v3_671b", 14)
 
-    qc = QuantConfig(mode="binary", M=2, K_iters=2)
-    cfg = reduced(get_config("deepseek_v3_671b")).replace(dtype="float32", quant=qc)
-    host = api.binarize_model_params(
-        cfg, api.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"))
-    params = {"cpu": host, "cuda": cm.tree_map(lambda t: t.to(card), host)}
-    rng = torch.Generator().manual_seed(1)
-    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).numpy().astype("int32")
-               for n in (5, 9, 3, 12)]
-    served = {}
-    for where, p in params.items():
-        srv = Server(cfg, p, max_batch=3, max_len=32)
-        reqs = [Request(prompt=pr, max_new_tokens=5, m_active=m)
-                for pr, m in zip(prompts, (None, 1, (1, 2), None))]
-        pending = list(reqs)
-        while pending or any(s is not None for s in srv.slots):
-            while pending and srv.admit(pending[0]):
-                pending.pop(0)
-            before, steps = ops.launch_counts()["binary_matmul"], srv.stats["decode_steps"]
-            srv.step()
-            if where == "cuda":
-                torch.cuda.synchronize()
-                assert ops.launch_counts()["binary_matmul"] - before == \
-                    14 * (srv.stats["decode_steps"] - steps)
-        served[where] = (reqs, srv.stats)
-    assert served["cuda"][1] == served["cpu"][1]
-    for a, b in zip(served["cuda"][0], served["cpu"][0]):
-        assert a.out_tokens == b.out_tokens
-        torch.testing.assert_close(torch.from_numpy(a.last_logits),
-                                   torch.from_numpy(b.last_logits), rtol=2e-5, atol=5e-5)
+
+@pytest.mark.parametrize("arch,per_pass", [("mamba2_2_7b", 4 * 2),
+                                           ("zamba2_7b", 4 * 2 + 2 * 8)])
+def test_recurrent_server_on_the_card_matches_the_cpu(card, arch, per_pass):
+    """A reduced mamba2 (4 Mamba2 layers x in/out_proj) and zamba2 (the same
+    and 2 shared-block points x 8 linears), mixed level counts: the grouped
+    decode's ``update_mask`` on the card."""
+    _serve_card_vs_cpu(card, arch, per_pass)
+
+
+def test_update_mask_keeps_state_rows_bit_exact_on_the_card(card):
+    """One mamba2-2.7b layer at full width, binary M=2, 4 rows of random
+    state: rows outside the mask keep their ssm and conv state bit for bit,
+    rows inside get what an unmasked decode gives them, and the card agrees
+    with the CPU within rtol 1e-4 / atol 1e-4·max|x|."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api, common as cm, ssm
+
+    cfg = get_config("mamba2_2_7b").replace(dtype="float32",
+                                            quant=QuantConfig(mode="binary", M=2, K_iters=2))
+    gen = torch.Generator().manual_seed(0)
+    layer = api.binarize_model_params(cfg, ssm.init_mamba2(gen, cfg, device="cpu"))
+    cache = cm.tree_map(lambda t: torch.randn(t.shape, generator=gen).to(t.dtype),
+                        ssm.init_mamba2_cache(cfg, 4, device="cpu"))
+    x = torch.randn(4, 1, cfg.d_model, generator=gen)
+    mask = torch.tensor([False, True, False, True])
+    outs = {}
+    for where in ("cpu", "cuda"):
+        p = cm.tree_map(lambda t: t.to(where), layer)
+        full, masked = (cm.tree_map(lambda t: t.to(where, copy=True), cache) for _ in range(2))
+        y_full, _ = ssm.mamba2_decode(p, x.to(where), cfg, full)
+        y, _ = ssm.mamba2_decode(p, x.to(where), cfg, masked, update_mask=mask.to(where))
+        torch.cuda.synchronize()
+        assert torch.equal(y, y_full)
+        for k in ("ssm_state", "conv_state"):
+            got = masked[k].cpu()
+            assert torch.equal(got[~mask], cache[k][~mask])
+            assert torch.equal(got[mask], full[k].cpu()[mask])
+        outs[where] = [y.cpu()] + [masked[k].cpu() for k in ("ssm_state", "conv_state")]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
 
 
 @pytest.mark.parametrize("mode", ["dense", "fake_quant"])

@@ -94,7 +94,8 @@ def test_configs_match_the_reference(name):
     jc, tc = jcb.get_config(name), tcb.get_config(name)
     assert fields(tc) == fields(jc)
     assert fields(tcb.reduced(tc)) == fields(jcb.reduced(jc))
-    assert tc.resolved_head_dim == jc.resolved_head_dim
+    if tc.n_heads:          # both packages divide by zero for attention-free mamba2
+        assert tc.resolved_head_dim == jc.resolved_head_dim
     assert tc.torch_dtype == torch.bfloat16 and tc.replace(dtype="float32").torch_dtype \
         == torch.float32
     assert tapi.count_params(tc) == japi.count_params(jc)
@@ -102,7 +103,7 @@ def test_configs_match_the_reference(name):
 
 def test_get_config_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcb.get_config("mamba2_2_7b")
+        tcb.get_config("whisper_medium")
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -295,7 +296,7 @@ def test_schedules_uniform_equals_int_and_mixed_differs(models):
                                             toks, max_len=8)[0])
 
 
-@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_other_families_raise(family):
     cfg = tcb.reduced(tcb.get_config("gemma_2b")).replace(family=family)
     for call in (lambda: tapi.init_params(cfg, torch.Generator(), device="cpu"),

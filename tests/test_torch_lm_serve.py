@@ -172,7 +172,7 @@ def test_bad_server_options_raise():
         tserve.Server(tc.replace(family="encdec"), tp, prefill="bulk")
 
 
-@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_other_families_raise(family):
     _, tc, _, tp = _model("gemma_2b")
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
