@@ -106,8 +106,8 @@ source, all at once) and runs, each phase failing loudly:
      linear shapes and phase 7's row counts; the full-width MoE layer
      against a plain per-token reference (a 64-token prefill and an 8-row
      decode: expert ids equal, the same dropped picks, rtol 1e-4 /
-     atol 1e-4·max|y|); the 3 dense layers on the card against a CPU copy
-     (prefill of 16 tokens + 2 decode steps); ``Server`` serving phase 7's
+     atol 1e-4·max|y|); the first dense layer on the card against a CPU
+     copy (prefill of 16 tokens + 2 decode steps); ``Server`` serving phase 7's
      8 requests with 28 matmul launches per admission and per decode group
      step, a second run giving the same tokens and bit-equal logits;
      admission of 64 tokens, the decode step at 8 slots beside its bytes
@@ -131,13 +131,13 @@ source, all at once) and runs, each phase failing loudly:
      and every row count of the phase; ``ssd_chunked`` at full width on the
      card against a float64 token-by-token recurrence (L = 64, 256 and the
      prime 257, chunk 1: y and the final state within rtol 2e-4 /
-     atol 2e-4); bulk prefill of 64 tokens against 64 token-wise decode
+     atol 2e-4); bulk prefill of 32 tokens against 32 token-wise decode
      steps (every cache leaf and the next logits within rtol 1e-4 /
      atol 1e-4·max|x|); the first 2 layers on the card against a CPU copy;
      ``Server`` serving phase 7's 8 requests with 128 matmul launches per
-     admission and per decode group step, a second run bit-equal, each
-     request alone (``max_batch=1``) equal to the mix (logits rtol 1e-5 /
-     atol 1e-5), slot 0's state ``torch.equal`` across the other 7
+     admission and per decode group step, a second run bit-equal, one
+     request of each mode alone (in 8 slots: logits rtol 1e-5 / atol 1e-5;
+     at ``max_batch=1``: rtol 2e-5 / atol 5e-5) equal to the mix, slot 0's state ``torch.equal`` across the other 7
      admissions and the decode groups it is not in; admission of 64 tokens,
      the decode step at 8 slots beside its bytes bound, a profiler window
      of 3 decode steps (``chiprun_out/trace_mamba2.json.gz``: idle share, the
@@ -149,7 +149,33 @@ source, all at once) and runs, each phase failing loudly:
      (``chiprun_out/trace_zamba2.json.gz``); (c) reduced mamba2 and zamba2
      served on the card against a CPU copy for 4 rounds and one fake-quant
      train step of each against the CPU (every metric within rtol 1e-5,
-     the card's gradients finite).
+     the card's gradients finite);
+ 12. the enc-dec and VLM families at published widths and depths, fp32,
+     M=2 (K_iters 8), each layer binarized as drawn, after phase 11's
+     models are freed: (a) whisper-medium (24 encoder + 24 decoder layers,
+     d_model 1024, 16 x 64 MHA, d_ff 4096 GELU, vocab 51865 tied,
+     ``encoder_len`` 1500): the matmul kernel against its plain version at
+     its 3 linear shapes and every row count of the phase (the encoder's
+     1500 x 8); ``init_encdec_cache`` over 8 random frame windows (192
+     matmul launches), timed beside its operations bound; 16 greedy
+     ``decode_step``s at 8 rows (192 launches each) and the teacher-forced
+     ``forward`` of the same tokens (384 launches) within rtol 1e-4 /
+     atol 1e-4·max|x| of the decode loop's logits; 2 encoder + 2 decoder
+     layers on the card against a CPU copy (encoder output, cross K/V, 4
+     decode steps); ``Server`` serving 8 requests (prompts of 4-16 tokens,
+     m_active None / 1, token-wise admission) with 192 launches per
+     admission step and per decode group step, a second run bit-equal;
+     admission of 64 tokens, the decode step at 8 slots beside its bytes
+     bound, a profiler window of 3 decode steps
+     (``chiprun_out/trace_whisper.json.gz``: idle share, the matmul kernel,
+     the cross-attention ops, the LM head); (b) internvl2-2b (24 layers,
+     d_model 2048, GQA 16 / 8 x 128, d_ff 8192 SwiGLU, vocab 92553, 256
+     image tokens): the kernel at its 4 shapes, ``forward`` of 2 x 256 patch
+     embeddings + 64 tokens (168 launches), 2 layers against a CPU copy, a
+     prefix of zeros against none, ``Server`` with 168 launches per pass,
+     the timed decode step; (c) reduced whisper and internvl2 served on the
+     card against a CPU copy for 4 rounds and one fake-quant train step of
+     each against the CPU.
 
 Weights are random, drawn from a seeded generator.  The logits of phases 2
 and 3 are compared with rtol 1e-4 and atol 1e-4·max|logit| (a relative
@@ -157,15 +183,17 @@ floor: the reference's random MobileNet init shrinks activations to ~1e-13
 by the head, and 28 layers of fp32 sums run in another order on each side).
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` counts the main
-paths of phases 2, 3, 7, 8a, 9a, 9c, 10 and 11, ``cnn_launches`` phases 2-3,
+paths of phases 2, 3, 7, 8a, 9a, 9c, 10, 11 and 12, ``cnn_launches`` phases 2-3,
 ``serve_launches`` phase 6, ``lm_launches`` phase 7's serving,
 ``train_launches`` phase 8a's execute, ``fuzz_launches`` phase 9a's
 ``execute`` calls, ``soak_launches`` phase 9c's soaks, ``moe_launches``
-phase 10's serving and ``ssm_launches`` phase 11's), nvidia-smi's line,
+phase 10's serving, ``ssm_launches`` phase 11's and ``encdec_launches``
+phase 12's), nvidia-smi's line,
 and last ``{"ok": true, "device": {...}}``; per-instruction numbers go to
 ``chiprun_out/chip_smoke.json``, phase 7's under ``"lm"``, phase 8's under
 ``"train"``, phase 9's under ``"verify"``, phase 10's under ``"moe"``,
-phase 11's under ``"ssm"``.  Exits non-zero, printing no result, without
+phase 11's under ``"ssm"``, phase 12's under ``"encdec"``.  Exits non-zero,
+printing no result, without
 a card or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
@@ -206,6 +234,7 @@ try:
     from repro_torch.models import api, common as cm, transformer as tf
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import hybrid as hybrid_mod, ssm as ssm_mod
+    from repro_torch.models import encdec as encdec_mod
     from repro_torch.kernels.binary_conv import unpack_taps
     from repro_torch.kernels.binary_dwconv import unpack_dw_taps
     from repro_torch.models import cnn
@@ -939,15 +968,15 @@ def lm_card_vs_plain(cfg, params, dev) -> dict:
     return {"worst_rel_err": worst}
 
 
-def decode_timing(where: str, cfg, params) -> tuple[dict, Server]:
-    """Admission of a 64-token prompt and a decode step at 8 active slots
-    (host clock and CUDA events); returns the numbers and the server, its 8
-    slots still active."""
+def decode_timing(where: str, cfg, params, admit_reps: int = 6) -> tuple[dict, Server]:
+    """Admission of a 64-token prompt (``admit_reps`` times, the first not
+    timed) and a decode step at 8 active slots (host clock and CUDA
+    events); returns the numbers and the server, its 8 slots still active."""
     rng = np.random.default_rng(2)
     srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
     prompt = rng.integers(0, cfg.vocab, LM_BUCKET).astype(np.int32)
     admit_ms = []
-    for i in range(6):
+    for i in range(admit_reps):
         srv.slots = [None] * LM_BATCH
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -980,8 +1009,10 @@ def decode_timing(where: str, cfg, params) -> tuple[dict, Server]:
             "decode_step_events_ms": statistics.median(dev_ms),
             "decode_steps_host_ms": host_ms, "plan_picks_per_decode_step": picks}
     step["tokens_per_s"] = LM_BATCH / step["decode_step_host_ms"] * 1e3
-    print(f"{where}: admission of a {LM_BUCKET}-token prompt (prefill at bucket "
-          f"{srv._padded_len(LM_BUCKET - 1)} + scatter) median {step['admit_64_ms']:.3f} ms; "
+    how = (f"prefill at bucket {srv._padded_len(LM_BUCKET - 1)} + scatter" if srv._bulk
+           else f"{LM_BUCKET - 1} token-wise decode steps")
+    print(f"{where}: admission of a {LM_BUCKET}-token prompt ({how}) median "
+          f"{step['admit_64_ms']:.3f} ms; "
           f"decode step at {LM_BATCH} active slots median {step['decode_step_host_ms']:.3f} ms "
           f"host clock, {step['decode_step_events_ms']:.3f} ms CUDA events "
           f"({step['tokens_per_s']:.1f} tokens/s); {picks} plan picks per step")
@@ -1019,15 +1050,17 @@ def lm_timing(cfg, params, gen: torch.Generator, dev, out_dir: Path) -> dict:
     return {**step, "profile": split, "linears": time_lm_linears(params, gen, dev)}
 
 
-def time_linears(where: str, weights: dict, gen: torch.Generator, dev) -> list:
-    """Per packed linear of ``weights`` at T = 8 (decode) and 64 (the
-    prefill bucket), m_active 2: the kernel, its plain version and
-    ``x @ W_hat`` (CUDA graphs) and the bound."""
+def time_linears(where: str, weights: dict, gen: torch.Generator, dev,
+                 row_counts=(LM_BATCH, LM_BUCKET)) -> list:
+    """Per packed linear of ``weights`` at each of ``row_counts`` (by
+    default T = 8, decode, and 64, the prefill bucket), m_active 2: the
+    kernel, its plain version and ``x @ W_hat`` (CUDA graphs) and the
+    bound."""
     rows = []
     for name, p in weights.items():
         K, N = p["B_packed"].shape[1] * 8, p["B_packed"].shape[2]
         W_hat = bz.reconstruct(bz.BinApprox(bz.unpack_bits(p["B_packed"], K), p["alpha"], K))
-        for T in (LM_BATCH, LM_BUCKET):
+        for T in row_counts:
             x = torch.randn(T, K, generator=gen).to(dev)
             kw = dict(K=K, group_size=K)
             ms = graph_ms(lambda: ops.binary_matmul(x, p["B_packed"], p["alpha"], **kw))
@@ -1774,26 +1807,32 @@ def moe_vs_reference(cfg, params, gen: torch.Generator, dev) -> dict:
 
 
 def moe_card_vs_plain(cfg, params) -> dict:
-    """Phase 10a check 3: the 3 leading dense layers (MLA + dense FFN) at
-    full width, as the main stack of a 3-layer model, on the card against
-    the plain versions on a CPU copy."""
-    cfg3 = cfg.replace(n_layers=cfg.n_dense_layers, n_dense_layers=0, mtp_depth=0)
+    """Phase 10a check 3: the first leading dense layer (MLA + dense FFN) at
+    full width, as the main stack of a 1-layer model, on the card against
+    the plain versions on a CPU copy (all 3 leading layers until the script
+    grew phase 12; the other two run the same code)."""
+    cfg1 = cfg.replace(n_layers=1, n_dense_layers=0, mtp_depth=0)
     card = {k: params[k] for k in ("embed", "unembed", "final_norm")}
-    card["layers"] = params["dense_layers"]
-    worst = card_vs_plain("10a", cfg3, card)
-    print(f"phase 10: {cfg3.n_layers} dense MLA layers at full width, prefill of 16 tokens + 2 "
+    card["layers"] = cm.tree_map(lambda t: t[:1], params["dense_layers"])
+    worst = card_vs_plain("10a", cfg1, card)
+    print(f"phase 10: {cfg1.n_layers} dense MLA layer at full width, prefill of 16 tokens + 2 "
           f"decode steps: card within rtol 1e-4 / atol 1e-4·max|x| of the plain versions on "
           f"the CPU (logits, every c_kv/k_rope leaf); worst max|d|/max|x| {worst:.3g}")
     return {"worst_rel_err": worst}
 
 
-def run_requests(where: str, cfg, params, per_pass: int, launches: dict | None):
-    """``lm_requests(cfg)`` through ``Server(max_batch=8, max_len=256)``
-    until done; with ``launches``, the counts are set to 0 just before each
+def run_requests(where: str, cfg, params, per_pass: int, launches: dict | None,
+                 requests=lm_requests):
+    """``requests(cfg)`` through ``Server(max_batch=8, max_len=256)`` until
+    done; with ``launches``, the counts are set to 0 just before each
     admission and each step, read just after, held to ``per_pass`` matmul
-    launches per admission and per decode group step and added up."""
-    reqs = lm_requests(cfg)
+    launches per pass (a bulk admission, each step of a token-wise one, a
+    decode group step) and added up."""
+    reqs = requests(cfg)
     srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN)
+
+    def admitted() -> int:
+        return srv.stats["bulk_prefills"] + srv.stats["tokenwise_prefill_steps"]
     rounds = 0
 
     def counted(fn, passes):
@@ -1811,7 +1850,9 @@ def run_requests(where: str, cfg, params, per_pass: int, launches: dict | None):
             launches[k] += v
 
     for r in reqs:
-        counted(lambda: srv.admit(r) or fail(f"{where} serve: admission refused"), lambda: 1)
+        before = admitted()
+        counted(lambda: srv.admit(r) or fail(f"{where} serve: admission refused"),
+                lambda: admitted() - before)
     while any(s is not None for s in srv.slots):
         before = srv.stats["decode_steps"]
         counted(srv.step, lambda: srv.stats["decode_steps"] - before)
@@ -1819,14 +1860,14 @@ def run_requests(where: str, cfg, params, per_pass: int, launches: dict | None):
     return reqs, srv, rounds
 
 
-def serve_twice(where: str, cfg, params, per_pass: int):
+def serve_twice(where: str, cfg, params, per_pass: int, requests=lm_requests):
     """The main path (``run_requests`` with its launches counted), every
     request done with finite logits, then the same requests on a fresh
     server: the same tokens and bit-equal logits.  Returns the first run's
     requests, server, rounds, launches and seconds."""
     launches = {k: 0 for k in TPU_KERNELS}
     t0 = time.perf_counter()
-    reqs, srv, rounds = run_requests(where, cfg, params, per_pass, launches)
+    reqs, srv, rounds = run_requests(where, cfg, params, per_pass, launches, requests)
     serve_s = time.perf_counter() - t0
     for r in reqs:
         if not r.done or len(r.out_tokens) != LM_NEW or r.last_logits.shape != (cfg.vocab,) \
@@ -1834,7 +1875,7 @@ def serve_twice(where: str, cfg, params, per_pass: int):
                 or not all(0 <= t < cfg.vocab for t in r.out_tokens):
             fail(f"{where} serve {cfg.name}: request of {r.prompt.size} tokens ended with "
                  f"{r.out_tokens}")
-    again = run_requests(where, cfg, params, per_pass, None)[0]
+    again = run_requests(where, cfg, params, per_pass, None, requests)[0]
     for a, b in zip(reqs, again):
         if a.out_tokens != b.out_tokens or not np.array_equal(a.last_logits, b.last_logits):
             fail(f"{where} serve {cfg.name}: a second run differs: {a.out_tokens} / "
@@ -2012,6 +2053,10 @@ def reduced_train(phase: str, name: str, dev) -> dict:
     host = train_steps.init_train_state(cfg, opt, device="cpu")
     tokens = torch.randint(0, cfg.vocab, (4, 17), generator=torch.Generator().manual_seed(1))
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    if cfg.family in ("encdec", "vlm"):     # the stub frontends' embeddings
+        key, n = (("frame_embeds", cfg.encoder_len) if cfg.family == "encdec"
+                  else ("patch_embeds", cfg.n_image_tokens))
+        batch[key] = torch.randn((4, n, cfg.d_model), generator=torch.Generator().manual_seed(2))
     out = {}
     for side, d in (("cpu", torch.device("cpu")), ("card", dev)):
         state = cm.tree_map(lambda t: t.clone().to(d) if t.ndim else t.clone(), host)
@@ -2140,9 +2185,10 @@ def build_ssm_lm(cfg, dev) -> tuple[dict, dict]:
 def ssm_rows(cfg) -> list[int]:
     """Every row count phase 11 gives the matmul kernel: T = 1 (token-wise
     decode), the decode batch, each request's exact prefill length (the
-    recurrent families are not padded), the 16-token card check and the
-    64-token prompt (63 at admission, 64 in the bulk check)."""
-    return sorted({1, LM_BATCH, 16, LM_BUCKET - 1, LM_BUCKET,
+    recurrent families are not padded), the 16-token card check, the
+    32-token bulk check and the 64-token prompt (63 at admission, 64 in
+    ``time_linears``)."""
+    return sorted({1, LM_BATCH, 16, BULK_CHECK_TOKENS, LM_BUCKET - 1, LM_BUCKET,
                    *(r.prompt.size - 1 for r in lm_requests(cfg))})
 
 
@@ -2212,26 +2258,30 @@ def rel_close(where: str, a: torch.Tensor, b: torch.Tensor) -> float:
     return err / scale
 
 
+BULK_CHECK_TOKENS = 32   # 64 until the script grew phase 12
+
+
 def bulk_vs_tokenwise(cfg, params, dev) -> float:
-    """Phase 11 check 3: one 64-token prompt by bulk prefill and by 64
+    """Phase 11 check 3: one 32-token prompt by bulk prefill and by 32
     token-wise decode steps (B=1) on the card: every cache leaf (state,
     pre-activation conv rows, the hybrid's KV) and the next step's logits
     within rtol 1e-4 / atol 1e-4·max|x|.  Returns the worst max|d|/max|x|."""
+    n = BULK_CHECK_TOKENS
     toks = torch.from_numpy(np.random.default_rng(4).integers(
-        0, cfg.vocab, (1, LM_BUCKET + 1))).to(dev)
-    _, bulk = api.prefill(cfg, params, toks[:, :LM_BUCKET], max_len=LM_LEN)
+        0, cfg.vocab, (1, n + 1))).to(dev)
+    _, bulk = api.prefill(cfg, params, toks[:, :n], max_len=LM_LEN)
     step = api.init_cache(cfg, 1, LM_LEN, device=dev)
-    for t in range(LM_BUCKET):
+    for t in range(n):
         api.decode_step(cfg, params, {"tokens": toks[:, t:t + 1], "cache": step,
                                       "pos": torch.tensor([t], device=dev)})
     worst = 0.0
     for a, b in zip(cm.tree_leaves(bulk), cm.tree_leaves(step)):
         worst = max(worst, rel_close(f"11 {cfg.name} bulk vs token-wise cache", a, b))
-    nxt = {"tokens": toks[:, LM_BUCKET:], "pos": torch.tensor([LM_BUCKET], device=dev)}
+    nxt = {"tokens": toks[:, n:], "pos": torch.tensor([n], device=dev)}
     la, _ = api.decode_step(cfg, params, dict(nxt, cache=bulk))
     lb, _ = api.decode_step(cfg, params, dict(nxt, cache=step))
     worst = max(worst, rel_close(f"11 {cfg.name} bulk vs token-wise next logits", la, lb))
-    print(f"phase 11: {cfg.name} bulk prefill of {LM_BUCKET} tokens vs {LM_BUCKET} token-wise "
+    print(f"phase 11: {cfg.name} bulk prefill of {n} tokens vs {n} token-wise "
           f"decode steps: every cache leaf and the next step's logits within rtol 1e-4 / atol "
           f"1e-4·max|x|; worst max|d|/max|x| {worst:.3g}")
     return worst
@@ -2291,8 +2341,10 @@ def slot_isolation(cfg, params) -> dict:
 
 
 def mixed_vs_alone(cfg, params, reqs: list) -> dict:
-    """Phase 11: each request served alone gives the tokens it got in the
-    8-slot mix.  Alone in a server of the same 8 slots (the same shapes for
+    """Phase 11: each of the first 3 requests (one of each mode: None, 1, a
+    per-layer schedule; all 8 until the script grew phase 12) served alone
+    gives the tokens it got in the 8-slot mix.  Alone in a server of the
+    same 8 slots (the same shapes for
     every op, so only the update mask and the grouping differ) its logits
     are within rtol 1e-5 / atol 1e-5; alone at ``max_batch=1`` (cuBLAS and
     the row reductions then sum in another order) within rtol 2e-5 /
@@ -2300,7 +2352,7 @@ def mixed_vs_alone(cfg, params, reqs: list) -> dict:
     worst = {}
     for batch, tol in ((LM_BATCH, 1e-5), (1, None)):
         worst[batch] = 0.0
-        for r in reqs:
+        for r in reqs[:3]:
             solo = Server(cfg, params, max_batch=batch, max_len=LM_LEN)
             again = Request(prompt=r.prompt.copy(), max_new_tokens=LM_NEW, m_active=r.m_active)
             solo.admit(again)
@@ -2310,7 +2362,7 @@ def mixed_vs_alone(cfg, params, reqs: list) -> dict:
                         f"{r.m_active}, alone (max_batch {batch}) vs in the mix", again, r, **kw)
             worst[batch] = max(worst[batch],
                                float(np.abs(again.last_logits - r.last_logits).max()))
-    print(f"phase 11: {cfg.name}: each of the {len(reqs)} requests served alone gave the tokens "
+    print(f"phase 11: {cfg.name}: each of the first 3 requests served alone gave the tokens "
           f"it got in the mix; last logits max |d| {worst[LM_BATCH]:.3g} alone in 8 slots "
           f"(rtol 1e-5 / atol 1e-5), {worst[1]:.3g} at max_batch 1 (rtol 2e-5 / atol 5e-5)")
     return {"max_abs_d_8_slots": worst[LM_BATCH], "max_abs_d_1_slot": worst[1]}
@@ -2319,7 +2371,8 @@ def mixed_vs_alone(cfg, params, reqs: list) -> dict:
 def serve_ssm(cfg, params, per_pass: int) -> dict:
     """Phase 11's main path: 8 requests through ``Server`` (launches held to
     ``per_pass`` per admission and per decode group step), a second run
-    bit-equal, each request alone equal to the mix, and slot isolation."""
+    bit-equal, one request of each mode alone equal to the mix, and slot
+    isolation."""
     reqs, srv, rounds, launches, serve_s = serve_twice("11", cfg, params, per_pass)
     print(f"phase 11: {cfg.name} served {len(reqs)} requests (prompts "
           f"{[r.prompt.size for r in reqs]}, m_active None/1/per-layer) in {rounds} rounds, "
@@ -2456,6 +2509,429 @@ def ssm_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the enc-dec (whisper-medium) and VLM (internvl2-2b) families
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCHS = ("whisper_medium", "internvl2_2b")
+ENCDEC_LINEARS = {  # arch -> label -> the path of one packed linear of that shape
+    "whisper_medium": {"q/k/v/o, cross": ("dec_layers", "attn", "wq"),
+                       "up": ("dec_layers", "ffn", "w_up"),
+                       "down": ("dec_layers", "ffn", "w_down")},
+    "internvl2_2b": {"q/o": ("layers", "attn", "wq"), "k/v": ("layers", "attn", "wk"),
+                     "gate/up": ("layers", "ffn", "w_gate"), "down": ("layers", "ffn", "w_down")},
+}
+ENCDEC_STEPS, VLM_TOKENS = 16, 64      # whisper's greedy decode steps; internvl2's tokens
+
+
+def whisper_passes(cfg) -> dict:
+    """Matmul launches of each whisper pass."""
+    return {"encode": cfg.n_encoder_layers * 6 + cfg.n_layers * 2,   # + each layer's cross k/v
+            "decode": cfg.n_layers * 8,                 # self q/k/v/o, cross q/o, up/down
+            "forward": cfg.n_encoder_layers * 6 + cfg.n_layers * 10}  # + cross k/v per layer
+
+
+def encdec_config(name: str):
+    """The published widths and depths, fp32, M=2 binary linears."""
+    return get_config(name).replace(dtype="float32",
+                                    quant=QuantConfig(mode="binary", M=2, K_iters=8))
+
+
+def build_encdec_lm(cfg, dev) -> tuple[dict, dict]:
+    """Phase 12: the weights drawn on the card from a seeded generator, each
+    encoder, decoder or LM layer binarized as soon as it is drawn; the
+    norms and tables stay fp32."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dt = cfg.torch_dtype
+    params = {"embed": cm.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device=dev)}
+    if cfg.family == "encdec":
+        params["enc_layers"], bin_s = stacked_layers(
+            lambda: encdec_mod.init_enc_layer(gen, cfg, device=dev), cfg, cfg.n_encoder_layers)
+        params["enc_norm"] = cm.init_rmsnorm(cfg.d_model, dt, device=dev)
+        params["dec_layers"], s = stacked_layers(
+            lambda: encdec_mod.init_dec_layer(gen, cfg, device=dev), cfg, cfg.n_layers)
+        bin_s += s
+    else:
+        params["layers"], bin_s = stacked_layers(lambda: tf.init_layer(gen, cfg, device=dev),
+                                                 cfg, cfg.n_layers)
+        if not cfg.tie_embeddings:
+            params["unembed"] = cm.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device=dev)
+    params["final_norm"] = cm.init_rmsnorm(cfg.d_model, dt, device=dev)
+    torch.cuda.synchronize()
+    leaves = cm.tree_leaves(params)
+    info = {"build_s": time.perf_counter() - t0, "binarize_s": bin_s,
+            "params": api.count_params(cfg),
+            "tables_gb": sum(params[k]["table"].numel() * 4 for k in ("embed", "unembed")
+                             if k in params) / 1e9,
+            "packed_gb": sum(t.numel() for t in leaves if t.dtype == torch.uint8) / 1e9,
+            "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"phase 12: {cfg.name} "
+          + (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers (encoder_len "
+             f"{cfg.encoder_len})" if cfg.family == "encdec" else
+             f"{cfg.n_layers} layers ({cfg.n_image_tokens} image tokens)") +
+          f", d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {info['params']:,} "
+          f"params; built in {info['build_s']:.2f} s, of which binarize {bin_s:.2f} s; tables "
+          f"{info['tables_gb']:.3f} GB, packed {info['packed_gb']:.3f} GB; card memory in use "
+          f"{info['memory_allocated_gb']:.2f} GB (peak {info['max_memory_allocated_gb']:.2f} GB)")
+    return params, info
+
+
+def encdec_rows(cfg) -> list[int]:
+    """Every row count phase 12 gives the matmul kernel: T = 1 (the CPU
+    copy's decode), the 8 slots (decode, token-wise admission), 64, and
+    whisper's 16-token forward at 8 rows and its encoder at 1 and 8 frame
+    windows, or internvl2's prefix + 64 tokens at batch 1 and 2."""
+    rows = {1, LM_BATCH, LM_BUCKET}
+    if cfg.family == "encdec":
+        return sorted(rows | {LM_BATCH * ENCDEC_STEPS, cfg.encoder_len,
+                              LM_BATCH * cfg.encoder_len})
+    n = cfg.n_image_tokens + VLM_TOKENS
+    return sorted(rows | {n, 2 * n})
+
+
+def counted_pass(where: str, want: int, fn):
+    """``fn()`` through ``counted_launches``: exactly ``want`` matmul
+    launches and no conv launch."""
+    n = {k: 0 for k in TPU_KERNELS}
+    out = counted_launches(fn, n)
+    if n["binary_matmul"] != want or n["binary_conv"] or n["binary_dwconv"]:
+        fail(f"{where}: launches {n}, want {want} matmul launches")
+    return out
+
+
+def packed_macs(tree, rows: int) -> int:
+    """fp-equivalent MACs of every stacked packed linear ([L, M, K/8, N]) of
+    ``tree`` at ``rows`` rows."""
+    return sum(rows * t[:, 0].numel() * 8 for t in cm.tree_leaves(tree) if t.dtype == torch.uint8)
+
+
+def nbytes_of(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in cm.tree_leaves(tree))
+
+
+def cross_kv_weights(params) -> dict:
+    """The decoder layers' cross k/v projections: run by the encode, never
+    by a decode step."""
+    return {k: params["dec_layers"]["xattn"][k] for k in ("wk", "wv")}
+
+
+def timed(fn, reps: int) -> tuple[list, list]:
+    """``fn()`` ``reps`` times: host-clock ms (ending in a synchronize) and
+    CUDA-event ms of each."""
+    host, events = [], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    return host, events
+
+
+def whisper_encode(cfg, params, frames) -> tuple[dict, dict]:
+    """12a: ``init_encdec_cache`` over 8 frame windows (the encoder once, each
+    decoder layer's cross K/V), its launches counted, then timed twice
+    beside the operations bound: the packed linears at 1500 x 8 rows, the
+    encoder's attention, the cross K/V; bytes the weights read, the frames
+    read, the cross K/V written."""
+    B, Se, H, hd = frames.shape[0], cfg.encoder_len, cfg.n_heads, cfg.resolved_head_dim
+    passes = whisper_passes(cfg)
+
+    def encode():
+        return encdec_mod.init_encdec_cache(params, cfg, B, LM_LEN, frames, device=frames.device)
+
+    cache = counted_pass("12a encode", passes["encode"], encode)
+    if not all(bool(torch.isfinite(cache[k]).all()) for k in ("cross_k", "cross_v")):
+        fail("12a encode: the cross K/V are not finite")
+    host, events = timed(encode, 2)
+    T = B * Se
+    flops = {"linears": 2 * packed_macs(params["enc_layers"], T),
+             "attention": 2 * cfg.n_encoder_layers * 2 * B * H * Se * Se * hd,
+             "cross_kv": 2 * packed_macs(cross_kv_weights(params), T)}
+    nbytes = (nbytes_of(params["enc_layers"]) + nbytes_of(cross_kv_weights(params))
+              + frames.numel() * 4 + 2 * cache["cross_k"].numel() * 4)
+    t_ops = sum(flops.values()) / FP32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    res = {"batch": B, "rows": T, "launches": passes["encode"], "host_ms": host,
+           "events_ms": events, "flops": flops, "bytes": nbytes,
+           "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
+           else "bytes", "cross_kv_gb": 2 * cache["cross_k"].numel() * 4 / 1e9}
+    print(f"phase 12: whisper encode of {B} frame windows ({T} rows per linear, "
+          f"{passes['encode']} matmul launches): {min(host):.3f} ms host clock, "
+          f"{min(events):.3f} ms CUDA events (best of 2) against a bound of "
+          f"{res['bound_ms']:.3f} ms ({res['bound_by']}: " + ", ".join(
+              f"{k} {v / 1e12:.2f} TFLOP" for k, v in flops.items()) +
+          f"); cross K/V {res['cross_kv_gb']:.2f} GB")
+    return cache, res
+
+
+def whisper_decode_vs_forward(cfg, params, frames, cache, rng) -> dict:
+    """12a: 16 greedy ``decode_step``s at 8 rows from the encoded cache (each
+    counted), then the teacher-forced ``forward`` of the same 16 tokens
+    (counted): its logits within rtol 1e-4 / atol 1e-4·max|x| of the decode
+    loop's."""
+    passes, B = whisper_passes(cfg), frames.shape[0]
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1))).to(frames.device)
+    seq, logits = [tok], []
+    for i in range(ENCDEC_STEPS):
+        batch = {"tokens": tok, "cache": cache,
+                 "pos": torch.full((B,), i, dtype=torch.int32, device=frames.device)}
+        lg, cache = counted_pass(f"12a decode step {i}", passes["decode"],
+                                 lambda: api.decode_step(cfg, params, batch))
+        logits.append(lg[:, 0])
+        tok = torch.argmax(lg[:, 0], dim=-1)[:, None]
+        seq.append(tok)
+    toks = torch.cat(seq[:-1], dim=1)
+    fwd, _ = counted_pass("12a forward", passes["forward"], lambda: api.forward(
+        cfg, params, {"tokens": toks, "frame_embeds": frames}))
+    worst = rel_close("12a teacher-forced forward vs the decode loop", fwd,
+                      torch.stack(logits, dim=1))
+    print(f"phase 12: whisper {ENCDEC_STEPS} greedy decode steps at {B} rows "
+          f"({passes['decode']} matmul launches each) and the teacher-forced forward of the same "
+          f"tokens ({passes['forward']} launches): logits within rtol 1e-4 / atol 1e-4·max|x|, "
+          f"max|d|/max|x| {worst:.3g}")
+    return {"steps": ENCDEC_STEPS, "worst_rel_err": worst,
+            "tokens": toks[0].tolist()}
+
+
+def cut_copy(cfg, params, depth: int) -> tuple:
+    """The config and params cut to ``depth`` layers (each stack) at full
+    width; the card's tree shares the full one's storage."""
+    cut = cfg.replace(n_layers=depth, n_encoder_layers=min(depth, cfg.n_encoder_layers))
+    card = {k: (cm.tree_map(lambda t: t[:depth], v) if k.endswith("layers") else v)
+            for k, v in params.items()}
+    return cut, card
+
+
+def encdec_card_vs_plain(cfg, params, frames, rng) -> dict:
+    """12a: 2 encoder + 2 decoder layers at full width, ``encoder_len`` kept,
+    one frame window, on the card and on a CPU copy (the plain versions):
+    the encoder output, the cross K/V and 4 decode steps' logits within
+    rtol 1e-4 / atol 1e-4·max|x|."""
+    cut, card = cut_copy(cfg, params, 2)
+    host = cm.tree_map(lambda t: t.to("cpu", copy=True), card)
+    x = frames[:1]
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1, 1)))
+    outs = {}
+    for side, p in (("card", card), ("plain", host)):
+        d = p["embed"]["table"].device
+        xd = x.to(d)
+        got = [encdec_mod.encode(p, cut, xd)]
+        cache = encdec_mod.init_encdec_cache(p, cut, 1, 32, xd, device=d)
+        got += [cache["cross_k"], cache["cross_v"]]
+        for i in range(4):
+            lg, cache = api.decode_step(cut, p, {"tokens": steps[i].to(d), "cache": cache,
+                                                 "pos": torch.tensor([i], device=d)})
+            got.append(lg)
+        outs[side] = got
+    names = ["encoder output", "cross k", "cross v"] + [f"decode step {i} logits"
+                                                        for i in range(4)]
+    worst = max(rel_close(f"12a card vs plain ({n})", a, b)
+                for n, a, b in zip(names, outs["card"], outs["plain"]))
+    print(f"phase 12: whisper cut to 2 encoder + 2 decoder layers at full width, one window of "
+          f"{cfg.encoder_len} frames: the encoder output, the cross K/V and 4 decode steps' "
+          f"logits on the card within rtol 1e-4 / atol 1e-4·max|x| of the plain versions on the "
+          f"CPU; worst max|d|/max|x| {worst:.3g}")
+    return {"worst_rel_err": worst}
+
+
+def vlm_forward(cfg, params, gen: torch.Generator, dev) -> dict:
+    """12b: ``forward`` with 2 x 256 patch embeddings and 64 tokens (640 rows
+    per linear, counted); the same model cut to 2 layers at one request on
+    the card against a CPU copy (rtol 1e-4 / atol 1e-4·max|x|); a prefix of
+    zeros gives other logits than no prefix."""
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, VLM_TOKENS))).to(dev)
+    patches = torch.randn((2, cfg.n_image_tokens, cfg.d_model), generator=gen).to(dev)
+    logits, _ = counted_pass("12b forward", cfg.n_layers * 7, lambda: api.forward(
+        cfg, params, {"tokens": toks, "patch_embeds": patches}))
+    if tuple(logits.shape) != (2, VLM_TOKENS, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"12b forward: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    cut, card = cut_copy(cfg, params, 2)
+    host = cm.tree_map(lambda t: t.to("cpu", copy=True), card)
+    one = {"tokens": toks[:1], "patch_embeds": patches[:1]}
+    worst = rel_close("12b card vs plain (2 layers)", api.forward(cut, card, one)[0],
+                      api.forward(cut, host, cm.tree_map(lambda t: t.cpu(), one))[0])
+    zeros = api.forward(cfg, params, {"tokens": toks[:1],
+                                      "patch_embeds": torch.zeros_like(patches[:1])})[0]
+    bare = tf.lm_forward(params, cfg, toks[:1])[0]
+    diff = float((zeros - bare).abs().max())
+    if torch.allclose(zeros, bare, rtol=1e-4, atol=1e-4 * float(bare.abs().max())):
+        fail(f"12b: a prefix of zeros gives the logits of no prefix (max |d| {diff:.3g})")
+    print(f"phase 12: internvl2 forward of 2 x ({cfg.n_image_tokens} image + {VLM_TOKENS} "
+          f"token) rows, {cfg.n_layers * 7} matmul launches; cut to 2 layers at full width, the "
+          f"card within rtol 1e-4 / atol 1e-4·max|x| of the CPU copy, max|d|/max|x| "
+          f"{worst:.3g}; a prefix of zeros moves the logits by up to {diff:.3g} against no "
+          f"prefix")
+    return {"worst_rel_err": worst, "zero_prefix_max_abs_d": diff}
+
+
+def encdec_requests(cfg) -> list[Request]:
+    """Phase 12's requests: prompts of 4-16 tokens, m_active None and 1 in
+    turn, 16 new tokens each."""
+    rng = np.random.default_rng(5)
+    return [Request(prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                    max_new_tokens=LM_NEW, m_active=(None, 1)[i % 2])
+            for i, n in enumerate(rng.integers(4, 17, LM_BATCH))]
+
+
+def serve_encdec(cfg, params, per_pass: int) -> dict:
+    """Phase 12's main path: 8 requests through ``Server`` with token-wise
+    admission (``per_pass`` matmul launches per admission step and per
+    decode group step), then again on a fresh server: the same tokens and
+    bit-equal logits."""
+    reqs, srv, rounds, launches, serve_s = serve_twice("12", cfg, params, per_pass,
+                                                       encdec_requests)
+    if srv.stats["bulk_prefills"] or srv.stats["tokenwise_prefill_steps"] != sum(
+            r.prompt.size - 1 for r in reqs):
+        fail(f"12 serve {cfg.name}: admission was not token-wise: {srv.stats}")
+    print(f"phase 12: {cfg.name} served {len(reqs)} requests (prompts "
+          f"{[r.prompt.size for r in reqs]}, m_active None/1, token-wise admission) in {rounds} "
+          f"rounds, {serve_s:.2f} s; stats {srv.stats}; {per_pass} matmul launches per "
+          f"admission step and per decode group step; a second run gave the same tokens and "
+          f"bit-equal logits")
+    return {"stats": srv.stats, "rounds": rounds, "serve_s": serve_s, "launches": launches,
+            "per_pass": per_pass, "prompt_lens": [int(r.prompt.size) for r in reqs],
+            "out_tokens": [r.out_tokens for r in reqs]}
+
+
+def encdec_step_work(cfg, params, srv) -> dict:
+    """Bytes and operations one decode step at 8 slots must move and do:
+    the weights it runs read once (whisper: the decoder's, less the cross
+    k/v projections; the LM head's table), the 8 embedding rows, every
+    cache leaf read (the self KV whole, whisper's cross K/V) and one self-KV
+    row per slot and layer written, the logits written; operations 2 per
+    MAC of the packed linears at 8 rows (fp-equivalent), of attention over
+    the whole self cache and whisper's encoder rows, and of the LM head."""
+    B, d, H, hd = LM_BATCH, cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    if cfg.family == "encdec":
+        dec = dict(params["dec_layers"])
+        dec["xattn"] = {k: v for k, v in dec["xattn"].items() if k in ("wq", "wo")}
+        serving = {"dec_layers": dec, "embed": params["embed"],
+                   "final_norm": params["final_norm"]}
+        self_kv = srv.cache["self"]
+    else:
+        serving = {k: v for k, v in params.items() if k != "embed"}
+        self_kv = srv.cache["layers"]
+    nbytes = nbytes_of(serving) + nbytes_of(srv.cache) + B * d * 4 + B * cfg.vocab * 4
+    nbytes += sum(t[:, :, 0].numel() * t.element_size() for t in cm.tree_leaves(self_kv))
+    W = self_kv["k"].shape[2]
+    macs = packed_macs(serving, B) + B * cfg.vocab * d
+    macs += cfg.n_layers * 2 * B * H * hd * (W + (cfg.encoder_len if cfg.family == "encdec"
+                                                  else 0))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * macs / FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": 2 * macs, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def encdec_timing(cfg, params, out_dir: Path) -> dict:
+    """Phase 12 timings: admission of a 64-token prompt (token-wise), a
+    decode step at 8 slots beside its bound, and for whisper a profiler
+    window of 3 decode steps: device busy, idle share, and the device time
+    of the matmul kernel, the cross-attention ops (those over the encoder's
+    rows) and the LM head."""
+    step, srv = decode_timing("phase 12", cfg, params, admit_reps=3)
+    work = encdec_step_work(cfg, params, srv)
+    step["work"] = work
+    print(f"phase 12: {cfg.name} decode step bound {work['bound_ms']:.3f} ms "
+          f"({work['bound_by']}: {work['bytes'] / 1e9:.2f} GB, {work['flops'] / 1e9:.1f} GFLOP) "
+          f"against {step['decode_step_events_ms']:.3f} ms (CUDA events)")
+    if cfg.family != "encdec":
+        return step
+    from torch.profiler import ProfilerActivity, profile, schedule
+    path = out_dir / "trace_whisper.json"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=3, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
+        for _ in range(4):
+            srv.step()
+            torch.cuda.synchronize()
+            prof.step()
+    trace = path.read_text()
+    with gzip.open(path.with_suffix(".json.gz"), "wt") as f:   # keeps chiprun_out/ small
+        f.write(trace)
+    path.unlink()
+    path = path.with_suffix(".json.gz")
+    split = device_split(json.loads(trace)["traceEvents"])
+    parts = {
+        "binary_matmul": sum(us for n, us in split["device_us_by_name"].items()
+                             if "binary_matmul" in n),
+        "cross_attention": self_device_us(prof, lambda ss: any(cfg.encoder_len in s
+                                                               for s in ss)),
+        "lm_head": self_device_us(prof, lambda ss: any(cfg.vocab in s for s in ss),
+                                  ("aten::mm", "aten::bmm", "aten::addmm"))}
+    if any(v == 0 for v in parts.values()):
+        fail(f"12 profile {cfg.name}: device time by part {parts}")
+    split.update({f"{k}_us_per_step": v / 3 for k, v in parts.items()})
+    print(f"phase 12: profiler over 3 decode steps: window {split['window_us'] / 3e3:.4f} ms "
+          f"per step, device busy {split['busy_us'] / 3e3:.4f} ms, idle share "
+          f"{split['idle_share']:.4f}; per step: " + ", ".join(
+              f"{k} {v / 3e3:.4f} ms" for k, v in parts.items()) +
+          f"; trace {path.relative_to(ROOT)}")
+    for name, us in list(split["device_us_by_name"].items())[:10]:
+        print(f"  {us / 3e3:.5f} ms per step  {name[:110]}")
+    return {**step, "profile": split}
+
+
+def encdec_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
+    """Phase 12: whisper-medium (a) and internvl2-2b (b) at their published
+    widths and depths, then the reduced configs against a CPU copy (c)."""
+    t0 = time.time()
+    res = {"launches": {k: 0 for k in TPU_KERNELS}}
+    for name in ENCDEC_ARCHS:
+        t1 = time.time()
+        cfg = encdec_config(name)
+        params, build = build_encdec_lm(cfg, dev)
+        weights = linear_weights(ENCDEC_LINEARS[name], params)
+        rows = encdec_rows(cfg)
+        r = {"config": {k: getattr(cfg, k) for k in (
+                 "name", "family", "n_layers", "n_encoder_layers", "encoder_len",
+                 "n_image_tokens", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+                 "vocab", "activation", "tie_embeddings", "rope_theta", "dtype")} | {"M": 2},
+             "build": build, "rows": rows,
+             "plans": {label: {T: list(ops.pick_matmul_plan(T, w["B_packed"].shape[-1]))
+                               for T in rows} for label, w in weights.items()},
+             "max_abs_err": check_linear_kernels(f"phase 12 {name}", weights, rows, gen, dev)}
+        rng = np.random.default_rng(7)
+        if cfg.family == "encdec":
+            per_pass = whisper_passes(cfg)["decode"]
+            frames = torch.randn((LM_BATCH, cfg.encoder_len, cfg.d_model), generator=gen).to(dev)
+            cache, r["encode"] = whisper_encode(cfg, params, frames)
+            r["decode_vs_forward"] = whisper_decode_vs_forward(cfg, params, frames, cache, rng)
+            del cache
+            r["card_vs_plain"] = encdec_card_vs_plain(cfg, params, frames, rng)
+            del frames
+            row_counts = (LM_BATCH, LM_BUCKET, LM_BATCH * cfg.encoder_len)
+        else:
+            per_pass = cfg.n_layers * 7
+            r["forward"] = vlm_forward(cfg, params, gen, dev)
+            row_counts = (LM_BATCH, LM_BUCKET, 2 * (cfg.n_image_tokens + VLM_TOKENS))
+        r["serve"] = serve_encdec(cfg, params, per_pass)
+        r["timing"] = encdec_timing(cfg, params, out_dir)
+        r["linears"] = time_linears(f"phase 12 {name}", weights, gen, dev, row_counts)
+        r["seconds"] = time.time() - t1
+        for k, v in r["serve"]["launches"].items():
+            res["launches"][k] += v
+        res[name] = r
+        del params, weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 12: {name} {r['seconds']:.1f} s")
+    res["reduced"] = {name: reduced_parity("12c", name, dev) for name in ENCDEC_ARCHS}
+    res["train"] = {name: reduced_train("12c", name, dev) for name in ENCDEC_ARCHS}
+    res["seconds"] = time.time() - t0
+    print(f"phase 12: {res['seconds']:.1f} s; launches {res['launches']}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -2541,6 +3017,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm = ssm_phase(gen, dev, out_dir)
     ssm_launches = ssm["launches"]
+    gc.collect()                      # phase 11's models are gone: their memory goes back
+    torch.cuda.empty_cache()
+    encdec = encdec_phase(gen, dev, out_dir)
+    encdec_launches = encdec["launches"]
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -2551,10 +3031,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (launches[name] + lm["serve"]["launches"][name]
                          + train["cnn_a"]["launches"][name] + fuzz_launches[name]
-                         + soak_launches[name] + moe_launches[name] + ssm_launches[name]),
+                         + soak_launches[name] + moe_launches[name] + ssm_launches[name]
+                         + encdec_launches[name]),
             "max_abs_err": max([max_err[name]] + (
                 [lm["max_abs_err"]] + [moe[a]["max_abs_err"] for a in MOE_ARCHS]
-                + [ssm[a]["max_abs_err"] for a in SSM_ARCHS] if name == "binary_matmul"
+                + [ssm[a]["max_abs_err"] for a in SSM_ARCHS]
+                + [encdec[a]["max_abs_err"] for a in ENCDEC_ARCHS] if name == "binary_matmul"
                 else [])),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2563,19 +3045,21 @@ def main() -> int:
             "lm_launches": lm["serve"]["launches"][name],
             "train_launches": train["cnn_a"]["launches"][name],
             "fuzz_launches": fuzz_launches[name], "soak_launches": soak_launches[name],
-            "moe_launches": moe_launches[name], "ssm_launches": ssm_launches[name]})
+            "moe_launches": moe_launches[name], "ssm_launches": ssm_launches[name],
+            "encdec_launches": encdec_launches[name]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
          "kernels": kernels, "layers": rows, "forward": forward, "profiles": profiles,
-         "serve": serve, "lm": lm, "train": train, "verify": verify, "moe": moe, "ssm": ssm},
+         "serve": serve, "lm": lm, "train": train, "verify": verify, "moe": moe, "ssm": ssm,
+         "encdec": encdec},
         indent=1))
     print("timings: ms, plain_ms, library_ms and bound_ms sum one forward of CNN-A "
           "(batch 64) and one of MobileNetV1-224 (batch 16); launches counts phases 2 "
           "and 3 (three calls of each network), phase 7's serving of gemma-2b, phase "
           "8a's execute of the retrained CNN-A, phase 9a's fuzz, phase 9c's soaks, phase "
-          "10's serving of DeepSeek-V3 and grok-1 and phase 11's of mamba2-2.7b and zamba2-7b; "
-          "the LM shapes' times are under \"lm\", \"moe\" and \"ssm\" in "
-          "chiprun_out/chip_smoke.json")
+          "10's serving of DeepSeek-V3 and grok-1, phase 11's of mamba2-2.7b and zamba2-7b "
+          "and phase 12's of whisper-medium and internvl2-2b; the LM shapes' times are under "
+          "\"lm\", \"moe\", \"ssm\" and \"encdec\" in chiprun_out/chip_smoke.json")
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,2 +1,2 @@
-"""Architecture configs of the port (dense, MoE, SSM and hybrid families;
+"""Architecture configs of the port (every family of the JAX package;
 see ``base.py``)."""

@@ -3,11 +3,11 @@
 Every ported architecture has one ``configs/<id>.py`` exporting ``CONFIG``
 (the JAX package's file with its import pointed here); ``get_config(name)``
 resolves it and ``reduced(cfg)`` shrinks it for CPU tests.  ``ArchConfig``
-holds the JAX package's fields that the dense, MoE, SSM (Mamba2) and hybrid
-(Zamba2) families read, under the same names and defaults, and the two
-training knobs (``remat``, ``onehot_loss``); the enc-dec and VLM fields come
-with the slice that ports those families (ROADMAP item 12e), and the JAX
-package's sharding knobs with ``distributed/``.  The dry run's shape cells
+holds the JAX package's fields that the dense, MoE, SSM (Mamba2), hybrid
+(Zamba2), enc-dec (Whisper) and VLM (InternVL2) families read, under the
+same names and defaults, and the two training knobs (``remat``,
+``onehot_loss``); the JAX package's sharding knobs come with
+``distributed/``.  The dry run's shape cells
 and input specs (``SHAPES``, ``input_specs``, ``cells``) are not ported yet
 (ROADMAP item 14).
 """
@@ -21,7 +21,8 @@ import torch
 from repro_torch.core.binlinear import QuantConfig
 
 ARCH_IDS = ["gemma_2b", "qwen3_14b", "h2o_danube_1_8b", "codeqwen15_7b",
-            "zamba2_7b", "mamba2_2_7b", "grok_1_314b", "deepseek_v3_671b"]
+            "zamba2_7b", "mamba2_2_7b", "grok_1_314b", "deepseek_v3_671b",
+            "whisper_medium", "internvl2_2b"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +69,11 @@ class ArchConfig:
     ssm_chunk: int = 256
     # --- hybrid (Zamba2) ---
     hybrid_attn_every: int = 6       # one shared attn block per N ssm blocks
+    # --- enc-dec (Whisper) ---
+    n_encoder_layers: int = 0
+    encoder_len: int = 1500          # precomputed frame embeddings (stub)
+    # --- VLM (InternVL2) ---
+    n_image_tokens: int = 0          # precomputed patch embeddings (stub)
     # --- numerics / quant ---
     dtype: str = "bfloat16"
     quant: QuantConfig = QuantConfig(mode="dense")
@@ -90,9 +96,7 @@ class ArchConfig:
 def get_config(name: str) -> ArchConfig:
     mod_name = name.replace("-", "_")
     if mod_name not in ARCH_IDS:
-        raise NotImplementedError(
-            f"config {name!r} is not in the port yet (ported: {ARCH_IDS}; the "
-            "enc-dec and VLM families wait for ROADMAP item 12e)")
+        raise ValueError(f"unknown config {name!r} (known: {ARCH_IDS})")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 
@@ -116,4 +120,8 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16, n_layers=4)
     if cfg.family == "hybrid":
         kw.update(hybrid_attn_every=2, n_layers=4)
+    if cfg.n_encoder_layers:
+        kw.update(n_encoder_layers=2, encoder_len=24)
+    if cfg.n_image_tokens:
+        kw.update(n_image_tokens=8)
     return cfg.replace(**kw)

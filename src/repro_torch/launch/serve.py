@@ -28,8 +28,14 @@ level count; the port runs eagerly and keeps one specialised config per
 level count instead (``cache_sizes`` counts them).  The cache and the
 params live on the server's device (the params'); tokens and positions are
 staged there each step, and only the argmax tokens and ``last_logits``
-come back to the host.  The dense, MoE, SSM and hybrid families are
-ported.
+come back to the host.
+
+Every family of ``models/api`` is served.  The enc-dec and VLM families
+have no bulk prefill and are warmed token-wise, as in the JAX package, and
+the server carries no frame or patch embeddings: an enc-dec slot's cross
+K/V stays the zeros of ``api.init_cache`` (a uniform softmax over zero
+values, a zero cross output), and a VLM cache is ``n_image_tokens`` rows
+longer than ``max_len`` and never holds image rows.
 
 A MoE layer's routed experts have a capacity per dispatch group, so a
 request's stream can depend on its neighbours, as in the JAX package: a

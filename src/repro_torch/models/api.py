@@ -1,5 +1,4 @@
-"""Unified model API, dense, MoE, SSM and hybrid families (port of
-``repro/models/api.py``).
+"""Unified model API for every LM family (port of ``repro/models/api.py``).
 
 The surface the serving runtime, tests and ``chip_smoke.py`` use:
 
@@ -13,11 +12,13 @@ The surface the serving runtime, tests and ``chip_smoke.py`` use:
   binarize_model_params(cfg, params)     -> packed deployment tree
   count_params(cfg, active_only=False)   -> int
 
-The dense and MoE families (MLA, leading dense layers, MTP), the SSM family
-(a Mamba2 stack) and the hybrid (Zamba2) are ported; the enc-dec and VLM
-families raise ``NotImplementedError`` naming their ROADMAP item.  The SSM
-and hybrid families unembed with the embedding table whatever
-``tie_embeddings`` says, as in the JAX package.
+The families: dense and MoE (MLA, leading dense layers, MTP), SSM (a
+Mamba2 stack), hybrid (Zamba2), enc-dec (Whisper: ``batch["frame_embeds"]``)
+and VLM (InternVL2: the LM stack after ``batch["patch_embeds"]``); another
+family name raises ``ValueError``.  The SSM and hybrid families unembed
+with the embedding table whatever ``tie_embeddings`` says, as in the JAX
+package.  The enc-dec and VLM families have no bulk prefill, as in the JAX
+package: ``prefill`` and ``scatter_cache`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,36 +31,27 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import binlinear as bl
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
 
-_PORTED = ("dense", "moe", "ssm", "hybrid")
-_WAITING = {  # family -> the ROADMAP item that ports it
-    "encdec": "12e (encdec.py and the VLM prefix)",
-    "vlm": "12e (encdec.py and the VLM prefix)",
-}
-
-
-def _ported_only(cfg: ArchConfig) -> None:
-    if cfg.family not in _PORTED:
-        item = _WAITING.get(cfg.family)
-        if item is None:
-            raise ValueError(cfg.family)
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not in the port yet: ROADMAP item {item}")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, *, device="cuda") -> dict:
     """fp params drawn from ``gen`` (on the generator's device), placed on
     ``device``."""
-    _ported_only(cfg)
     dev = resolve_device(device)
+    if cfg.family in ("dense", "moe", "vlm"):
+        return tf_mod.init_lm(gen, cfg, device=dev)
     if cfg.family == "ssm":
         return _init_ssm_lm(gen, cfg, dev)
     if cfg.family == "hybrid":
         return hybrid_mod.init_hybrid(gen, cfg, device=dev)
-    return tf_mod.init_lm(gen, cfg, device=dev)
+    if cfg.family == "encdec":
+        return encdec_mod.init_encdec(gen, cfg, device=dev)
+    raise ValueError(cfg.family)
 
 
 def _init_ssm_lm(gen: torch.Generator, cfg: ArchConfig, dev) -> dict:
@@ -87,13 +79,18 @@ def _ssm_hidden(params, cfg: ArchConfig, tokens):
 
 def forward(cfg: ArchConfig, params, batch):
     """Full-sequence forward -> (logits [B, S, V], aux dict)."""
-    _ported_only(cfg)
     tokens = batch["tokens"]
+    if cfg.family in ("dense", "moe"):
+        return tf_mod.lm_forward(params, cfg, tokens)
+    if cfg.family == "vlm":
+        return tf_mod.lm_forward(params, cfg, tokens, prefix_embeds=batch["patch_embeds"])
     if cfg.family == "ssm":
         return cm.unembed(params["embed"], _ssm_hidden(params, cfg, tokens)), {}
     if cfg.family == "hybrid":
         return hybrid_mod.hybrid_forward(params, cfg, tokens), {}
-    return tf_mod.lm_forward(params, cfg, tokens)
+    if cfg.family == "encdec":
+        return encdec_mod.encdec_forward(params, cfg, tokens, batch["frame_embeds"]), {}
+    raise ValueError(cfg.family)
 
 
 def _nll(logits, labels):
@@ -105,14 +102,15 @@ def loss_fn(cfg: ArchConfig, params, batch):
     """Next-token cross-entropy over fp32 logits (+ MoE load balance x 0.01
     + MTP x 0.3) -> (loss, metrics).  With ``cfg.onehot_loss`` the CE is
     logsumexp minus a one-hot contraction (the JAX package's vocab-sharded
-    form), else log-softmax and a gather."""
-    _ported_only(cfg)
+    form), else log-softmax and a gather.  The VLM family's hidden states
+    (and its MTP head's input) are those of the tokens after the prefix."""
     tokens, labels = batch["tokens"], batch["labels"].long()
-    if cfg.family in ("ssm", "hybrid"):
-        logits, aux = forward(cfg, params, batch)
-    else:
-        hidden, aux = tf_mod.lm_hidden(params, cfg, tokens)
+    if cfg.family in ("dense", "moe", "vlm"):
+        prefix = batch["patch_embeds"] if cfg.family == "vlm" else None
+        hidden, aux = tf_mod.lm_hidden(params, cfg, tokens, prefix_embeds=prefix)
         logits = tf_mod.lm_logits(params, cfg, hidden)
+    else:
+        logits, aux = forward(cfg, params, batch)
     if cfg.onehot_loss:
         lg = logits.to(torch.float32)
         onehot = F.one_hot(labels, lg.shape[-1]).to(lg.dtype)
@@ -140,17 +138,25 @@ def loss_fn(cfg: ArchConfig, params, batch):
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
-    _ported_only(cfg)
+    """The VLM cache holds ``n_image_tokens`` more rows than ``max_len``."""
+    if cfg.family in ("dense", "moe"):
+        return tf_mod.lm_cache_specs(cfg, batch, max_len)
+    if cfg.family == "vlm":
+        return tf_mod.lm_cache_specs(cfg, batch, max_len + cfg.n_image_tokens)
     if cfg.family == "ssm":
         return cm.tree_map(lambda s: attn.CacheSpec((cfg.n_layers, *s.shape), s.dtype),
                            ssm_mod.mamba2_cache_specs(cfg, batch))
     if cfg.family == "hybrid":
         return hybrid_mod.hybrid_cache_specs(cfg, batch, max_len)
-    return tf_mod.lm_cache_specs(cfg, batch, max_len)
+    if cfg.family == "encdec":
+        return encdec_mod.encdec_cache_specs(cfg, batch, max_len)
+    raise ValueError(cfg.family)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda") -> dict:
-    """Zeros (-1 for a sliding window's int32 ``slot_pos``) on ``device``."""
+    """Zeros (-1 for a sliding window's int32 ``slot_pos``) on ``device``;
+    an enc-dec cache's cross K/V stays zero (``encdec.init_encdec_cache``
+    fills it from frame embeddings)."""
     return attn.init_from_specs(cache_specs(cfg, batch, max_len), device)
 
 
@@ -160,16 +166,19 @@ def decode_step(cfg: ArchConfig, params, batch):
     gates the *recurrent* state write-back per row for ssm/hybrid (rows
     outside a serving group keep their state bit for bit; their logits are
     garbage and ignored).  Positional KV caches need no mask (see
-    ``launch/serve.py``'s transient-row invariant), so the dense and MoE
-    families ignore it."""
-    _ported_only(cfg)
+    ``launch/serve.py``'s transient-row invariant), so the other families
+    ignore it."""
     tokens, pos, cache = batch["tokens"], batch["pos"], batch["cache"]
+    if cfg.family in ("dense", "moe", "vlm"):
+        return tf_mod.lm_decode_step(params, cfg, tokens, pos, cache)
     if cfg.family == "ssm":
         return _ssm_decode(params, cfg, tokens, cache, update_mask=batch.get("update_mask"))
     if cfg.family == "hybrid":
         return hybrid_mod.hybrid_decode_step(params, cfg, tokens, pos, cache,
                                              update_mask=batch.get("update_mask"))
-    return tf_mod.lm_decode_step(params, cfg, tokens, pos, cache)
+    if cfg.family == "encdec":
+        return encdec_mod.encdec_decode_step(params, cfg, tokens, pos, cache)
+    raise ValueError(cfg.family)
 
 
 def _ssm_decode(params, cfg: ArchConfig, tokens, cache, update_mask=None):
@@ -188,15 +197,22 @@ def _ssm_decode(params, cfg: ArchConfig, tokens, cache, update_mask=None):
 
 
 # families with a bulk prefill in the JAX package; the serving runtime
-# falls back to token-wise warmup for the others
+# falls back to token-wise warmup for the others (encdec, vlm)
 BULK_PREFILL_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def _bulk_only(cfg: ArchConfig) -> None:
+    if cfg.family in ("encdec", "vlm"):
+        raise NotImplementedError(f"bulk prefill not implemented for family={cfg.family!r}")
+    if cfg.family not in BULK_PREFILL_FAMILIES:
+        raise ValueError(cfg.family)
 
 
 def prefill(cfg: ArchConfig, params, tokens, *, max_len: int):
     """Bulk prefill: tokens [B, S] -> (logits [B, S, V], decode cache shaped
     like ``cache_specs(cfg, B, max_len)`` with positions 0..S-1 populated),
     the same state as S ``decode_step`` calls in one forward."""
-    _ported_only(cfg)
+    _bulk_only(cfg)
     if cfg.family == "ssm":
         return _ssm_prefill(params, cfg, tokens)
     if cfg.family == "hybrid":
@@ -221,7 +237,7 @@ def _ssm_prefill(params, cfg: ArchConfig, tokens):
 def scatter_cache(cfg: ArchConfig, cache, slot: int, part):
     """Write a B=1 prefill cache into batch row ``slot`` of a serving cache,
     in place (leaves are [L, B, ...]); other rows are untouched."""
-    _ported_only(cfg)
+    _bulk_only(cfg)
 
     def put(full, p):
         full[:, slot] = p[:, 0]
@@ -301,9 +317,14 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """Parameter count of ``init_params(cfg)``, from the config alone;
     ``active_only`` leaves out the routed experts a token does not visit
     (the JAX package's rule: all but ``top_k`` of them in each MoE layer).
-    The SSM and hybrid families hold one table, tied or not."""
-    _ported_only(cfg)
+    The SSM, hybrid and enc-dec families hold one table, tied or not."""
     d = cfg.d_model
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
+    if cfg.family == "encdec":   # encoder layers: 2 norms; decoder: 3 norms and xattn
+        layer = _attn_params(cfg) + _ffn_params(cfg, cfg.d_ff)
+        return (cfg.n_encoder_layers * (layer + 2 * d)
+                + cfg.n_layers * (layer + _attn_params(cfg) + 3 * d) + cfg.vocab * d + 2 * d)
     if cfg.family in ("ssm", "hybrid"):
         total = cfg.n_layers * _mamba_layer_params(cfg) + cfg.vocab * d + d
         if cfg.family == "hybrid":       # the shared block: in_proj, ln1, ln2, attn, ffn

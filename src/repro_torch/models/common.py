@@ -96,6 +96,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """Fixed sinusoidal embeddings [length, dim] in fp32 (the Whisper
+    encoder's positions; the caller casts them to the config dtype)."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    inv = 1.0 / (10_000 ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Linear / embedding (quantization-aware)
 # ---------------------------------------------------------------------------

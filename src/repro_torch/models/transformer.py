@@ -12,7 +12,10 @@ scanned and unrolled walks are one loop here.  ``cfg.remat`` wraps each
 layer's training forward in ``torch.utils.checkpoint`` (non-reentrant), as
 the JAX package wraps it in ``jax.checkpoint``: the layer's activations are
 recomputed in backward, a fake-quant layer's Algorithm 2 with them.  The
-VLM prefix (``prefix_embeds``) comes with the VLM family (ROADMAP 12e).
+VLM family's image prefix (``prefix_embeds``, precomputed patch embeddings)
+is concatenated before the token embeddings: positions and the causal mask
+cover prefix + tokens, and the prefix rows are sliced off after the final
+norm.
 """
 from __future__ import annotations
 
@@ -137,22 +140,28 @@ def _run_stack(stacked, x, cfg: ArchConfig, positions, mask, *, layer0: int = 0)
     return x, total
 
 
-def _embed(params, cfg: ArchConfig, tokens):
+def _embed(params, cfg: ArchConfig, tokens, prefix_embeds=None):
+    """Embeddings (after an optional prefix), their positions and mask."""
     x = cm.embed(params["embed"], tokens).to(cfg.torch_dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     return x, positions, cm.causal_mask(S, cfg.sliding_window, device=x.device)
 
 
-def lm_hidden(params, cfg: ArchConfig, tokens):
-    """Token embeddings -> final hidden states, and the aux dict with the
-    load-balance loss summed over the MoE layers (0 for a dense stack)."""
-    x, positions, mask = _embed(params, cfg, tokens)
+def lm_hidden(params, cfg: ArchConfig, tokens, *, prefix_embeds=None):
+    """Token (after an optional prefix's) embeddings -> final hidden states
+    of the tokens, and the aux dict with the load-balance loss summed over
+    the MoE layers (0 for a dense stack)."""
+    x, positions, mask = _embed(params, cfg, tokens, prefix_embeds)
     lb_total = torch.zeros((), device=x.device)
     for key, layer0 in _stacks(params, cfg):
         x, lb = _run_stack(params[key], x, cfg, positions, mask, layer0=layer0)
         lb_total = lb_total + lb
     x = cm.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    if prefix_embeds is not None:
+        x = x[:, prefix_embeds.shape[1]:]
     return x, {"load_balance_loss": lb_total}
 
 
@@ -161,8 +170,8 @@ def lm_logits(params, cfg: ArchConfig, hidden):
     return cm.softcap(cm.unembed(table, hidden), cfg.logit_softcap)
 
 
-def lm_forward(params, cfg: ArchConfig, tokens):
-    hidden, aux = lm_hidden(params, cfg, tokens)
+def lm_forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None):
+    hidden, aux = lm_hidden(params, cfg, tokens, prefix_embeds=prefix_embeds)
     return lm_logits(params, cfg, hidden), aux
 
 

@@ -310,6 +310,29 @@ def test_binary_matmul_kernel_at_the_lm_shapes(card, T, K, N):
         assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
+@pytest.mark.parametrize("T,K,N", [
+    (1, 1024, 1024), (8, 1024, 4096), (64, 4096, 1024),              # whisper decode, prefill
+    (1500, 1024, 1024), (12000, 1024, 4096), (12000, 4096, 1024),    # whisper encoder, B = 1, 8
+    (8, 2048, 2048), (8, 2048, 1024), (640, 2048, 8192), (640, 8192, 2048)])  # internvl2
+def test_binary_matmul_kernel_at_the_encdec_and_vlm_shapes(card, T, K, N):
+    """whisper-medium's linears (q/k/v/o and cross 1024->1024, up
+    1024->4096, down 4096->1024) at decode's rows and at the encoder's
+    1500·B rows (T·K = 49 M at the down projection), and internvl2-2b's
+    (q/o, GQA k/v, gate/up, down) at decode's rows and at 2 x (256 image
+    + 64 token) rows; m_active 1 and 2, three plans bit-identical."""
+    gen = torch.Generator().manual_seed(T + K + N)
+    x = torch.randn(T, K, generator=gen).to(card)
+    packed = bz.pack_bits(_signs(gen, (2, K, N))).to(card)
+    alpha = (_alpha(gen, (2, 1, N)) / K ** 0.5).to(card)
+    for m in (1, 2):
+        want = ref.binary_matmul_ref(x, packed, alpha, K=K, group_size=K, m_active=m)
+        outs = [ops.binary_matmul(x, packed, alpha, K=K, group_size=K, m_active=m, plan=plan)
+                for plan in (None, (2, 64), (8, 32))]
+        torch.cuda.synchronize()
+        torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
+        assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
 def _serve_card_vs_cpu(card, arch: str, per_pass: int):
     """``reduced(arch)`` with M=2 binary linears served on the card and on
     the CPU (plain versions): 4 requests through ``Server(max_batch=3)``
@@ -369,6 +392,16 @@ def test_recurrent_server_on_the_card_matches_the_cpu(card, arch, per_pass):
     """A reduced mamba2 (4 Mamba2 layers x in/out_proj) and zamba2 (the same
     and 2 shared-block points x 8 linears), mixed level counts: the grouped
     decode's ``update_mask`` on the card."""
+    _serve_card_vs_cpu(card, arch, per_pass)
+
+
+@pytest.mark.parametrize("arch,per_pass", [("whisper_medium", 2 * 8),
+                                           ("internvl2_2b", 2 * 7)])
+def test_encdec_and_vlm_server_on_the_card_matches_the_cpu(card, arch, per_pass):
+    """A reduced whisper (2 decoder layers x self q/k/v/o, cross q/o,
+    up/down; the cross K/V the zeros of ``init_cache``) and internvl2 (2
+    layers x 7, the cache 8 image rows longer, never holding image rows),
+    both admitted token-wise."""
     _serve_card_vs_cpu(card, arch, per_pass)
 
 

@@ -102,8 +102,10 @@ def test_configs_match_the_reference(name):
 
 
 def test_get_config_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcb.get_config("whisper_medium")
+    """Every JAX config is ported; a name that is none of them raises."""
+    assert sorted(tcb.ARCH_IDS) == sorted(jcb.ARCH_IDS)
+    with pytest.raises(ValueError, match="unknown config"):
+        tcb.get_config("whisper_large")
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -298,14 +300,26 @@ def test_schedules_uniform_equals_int_and_mixed_differs(models):
 
 @pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_other_families_raise(family):
-    cfg = tcb.reduced(tcb.get_config("gemma_2b")).replace(family=family)
+    """The family's reduced config initialises; the same config under a
+    family name no package knows raises ``ValueError`` in every entry
+    point, as the JAX package's dispatch does."""
+    name = {"encdec": "whisper_medium", "vlm": "internvl2_2b"}[family]
+    cfg = tcb.reduced(tcb.get_config(name)).replace(dtype="float32")
+    assert cfg.family == family
+    assert tapi.count_params(cfg) == sum(t.numel() for t in tcm.tree_leaves(
+        tapi.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")))
+    cfg = cfg.replace(family=family.upper())
     for call in (lambda: tapi.init_params(cfg, torch.Generator(), device="cpu"),
                  lambda: tapi.forward(cfg, {}, {"tokens": None}),
+                 lambda: tapi.loss_fn(cfg, {}, {"tokens": None, "labels": torch.zeros(1)}),
                  lambda: tapi.cache_specs(cfg, 1, 8),
+                 lambda: tapi.init_cache(cfg, 1, 8, device="cpu"),
                  lambda: tapi.prefill(cfg, {}, None, max_len=8),
+                 lambda: tapi.scatter_cache(cfg, {}, 0, {}),
+                 lambda: tapi.count_params(cfg),
                  lambda: tapi.decode_step(cfg, {}, {"tokens": None, "pos": None,
                                                     "cache": None})):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        with pytest.raises(ValueError, match=family.upper()):
             call()
 
 

@@ -26,6 +26,7 @@ from repro_torch.configs import base as tcb
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import binlinear as tbl
 from repro_torch.launch import serve as tserve
+from repro_torch.models import api as tapi
 from repro_torch.models import common as tcm
 
 JQC = jbl.QuantConfig(mode="binary", M=2, K_iters=2)
@@ -174,9 +175,15 @@ def test_bad_server_options_raise():
 
 @pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_other_families_raise(family):
-    _, tc, _, tp = _model("gemma_2b")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tserve.Server(tc.replace(family=family), tp, max_batch=1, max_len=8)
+    """A server of the family's reduced config starts (token-wise
+    admission); under a family name no package knows it raises
+    ``ValueError``."""
+    name = {"encdec": "whisper_medium", "vlm": "internvl2_2b"}[family]
+    cfg = tcb.reduced(tcb.get_config(name)).replace(dtype="float32", quant=TQC)
+    params = tapi.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert not tserve.Server(cfg, params, max_batch=1, max_len=8)._bulk
+    with pytest.raises(ValueError, match=family.upper()):
+        tserve.Server(cfg.replace(family=family.upper()), params, max_batch=1, max_len=8)
 
 
 def test_cache_and_staging_stay_on_the_params_device():
