@@ -175,7 +175,22 @@ source, all at once) and runs, each phase failing loudly:
      prefix of zeros against none, ``Server`` with 168 launches per pass,
      the timed decode step; (c) reduced whisper and internvl2 served on the
      card against a CPU copy for 4 rounds and one fake-quant train step of
-     each against the CPU.
+     each against the CPU;
+ 13. the mesh (``distributed/`` over ``torch.distributed``): (a)
+     ``plan_mesh`` and ``verify_mesh_plan`` on the abstract MobileNetV1-224
+     (batch 16) at 2x1, 1x2, 2x2 and 1x4 and CNN-A (batch 64) at 2x1 and
+     4x1, each plan clean and its bd layers and ``mesh_totals`` equal to
+     the JAX planner's; (b) phases 2-3's programs saved
+     (``chiprun_out/mesh_prog/``) and loaded by ranks spawned with
+     ``run_local`` on the one card (gloo): CNN-A 2x1 and MobileNet 2x1 and
+     1x2 (world 2), MobileNet 2x2 (world 4), each at m_active None, 1 and
+     per layer, MobileNet 2x1 also at a ragged batch of 15, every forward
+     ``torch.equal`` to single-process ``execute``, no plan pick, one launch
+     per instruction per rank; (c) ``CNNService(mesh_plan=...)`` at
+     MobileNet 1x2 over 10 batches of 16 on both ranks, equal to the plain
+     service; (d) the median sharded forward (rank 0, CUDA events) beside
+     single-process ``execute``: every rank shares one card, so these say
+     nothing of scaling.  Numbers under ``"mesh"``.
 
 Weights are random, drawn from a seeded generator.  The logits of phases 2
 and 3 are compared with rtol 1e-4 and atol 1e-4·max|logit| (a relative
@@ -183,16 +198,17 @@ floor: the reference's random MobileNet init shrinks activations to ~1e-13
 by the head, and 28 layers of fp32 sums run in another order on each side).
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` counts the main
-paths of phases 2, 3, 7, 8a, 9a, 9c, 10, 11 and 12, ``cnn_launches`` phases 2-3,
+paths of phases 2, 3, 7, 8a, 9a, 9c, 10, 11, 12 and 13, ``cnn_launches`` phases 2-3,
 ``serve_launches`` phase 6, ``lm_launches`` phase 7's serving,
 ``train_launches`` phase 8a's execute, ``fuzz_launches`` phase 9a's
 ``execute`` calls, ``soak_launches`` phase 9c's soaks, ``moe_launches``
-phase 10's serving, ``ssm_launches`` phase 11's and ``encdec_launches``
-phase 12's), nvidia-smi's line,
+phase 10's serving, ``ssm_launches`` phase 11's, ``encdec_launches``
+phase 12's and ``mesh_launches`` phase 13's ranks), nvidia-smi's line,
 and last ``{"ok": true, "device": {...}}``; per-instruction numbers go to
 ``chiprun_out/chip_smoke.json``, phase 7's under ``"lm"``, phase 8's under
 ``"train"``, phase 9's under ``"verify"``, phase 10's under ``"moe"``,
-phase 11's under ``"ssm"``, phase 12's under ``"encdec"``.  Exits non-zero,
+phase 11's under ``"ssm"``, phase 12's under ``"encdec"``, phase 13's under
+``"mesh"``.  Exits non-zero,
 printing no result, without
 a card or without the repository's ``src/`` beside it.
 """
@@ -241,7 +257,8 @@ try:
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.serve_cnn import CNNService, default_ladder
     from repro_torch.testing.faults import FaultInjector, FaultPlan, inject_faults
-    from repro_torch.analysis import trace_lint, verify_program
+    from repro_torch.analysis import trace_lint, verify_mesh_plan, verify_program
+    from repro_torch import distributed as mesh_dist
     from repro_torch.testing import fuzz
     from repro_torch.testing import scenarios as soak_sc
     from repro_torch.testing.soak import TrendViolation, run_soak
@@ -2932,6 +2949,220 @@ def encdec_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the mesh (distributed/ over torch.distributed, several ranks on
+# the one card through gloo)
+# ---------------------------------------------------------------------------
+
+MESH_SHAPES = {"cnn_a": (64, 48, 48, 3), "mobilenet": (16, 224, 224, 3)}
+MESH_BD = tuple(f"pw{i}" for i in range(4, 13))
+# (arch, (n_data, n_model)) -> (bd-sharded layers, per-device weight bytes,
+# gather bytes, replication overhead): what the JAX package's
+# repro.distributed.plan_mesh and mesh_totals give on the CPU for the same
+# abstract programs (M=2, the default min_shard_bytes);
+# tests/test_torch_distributed.py holds the two planners equal
+MESH_STATIC = {
+    ("mobilenet", (2, 1)): ((), 1_148_184, 0, 2.0),
+    ("mobilenet", (1, 2)): (MESH_BD, 741_656, 28_901_376, 1.2918765633382803),
+    ("mobilenet", (2, 2)): (MESH_BD, 741_656, 14_450_688, 2.5837531266765605),
+    ("mobilenet", (1, 4)): (MESH_BD, 538_392, 43_352_064, 1.8756296900148408),
+    ("cnn_a", (2, 1)): ((), 175_906, 0, 2.0),
+    ("cnn_a", (4, 1)): ((), 175_906, 0, 4.0),
+}
+MESH_RUNS = {2: (("cnn_a", (2, 1)), ("mobilenet", (2, 1)), ("mobilenet", (1, 2))),
+             4: (("mobilenet", (2, 2)),)}    # world size -> the plans its ranks run
+MESH_SERVE = ("mobilenet", (1, 2))           # CNNService(mesh_plan=...), world 2
+MESH_SERVE_BATCHES = 10
+MESH_RAGGED = 15                             # MobileNet at 2x1 only
+MESH_TIMED = 10
+
+
+def mesh_static() -> dict:
+    """13a: plan_mesh and verify_mesh_plan on the abstract programs."""
+    quant = QuantConfig(mode="binary", M=2)
+    abstract = {arch: deploy.abstract_program(arch, quant, shape, device="cpu")
+                for arch, shape in MESH_SHAPES.items()}
+    out = {}
+    for (arch, (n_data, n_model)), want in MESH_STATIC.items():
+        program = abstract[arch]
+        plan = mesh_dist.plan_mesh(program, n_data=n_data, n_model=n_model)
+        findings = verify_mesh_plan(program, plan)
+        if findings:
+            fail(f"mesh {arch} {n_data}x{n_model}: verify_mesh_plan: "
+                 f"{[str(f) for f in findings]}")
+        tot = mesh_dist.mesh_totals(program, plan)
+        got = (tuple(program.instrs[i].name for i, s in enumerate(plan.shards)
+                     if s.kind == "bd"),
+               tot["per_device_weight_bytes"], tot["gather_bytes"],
+               tot["replication_overhead"])
+        if got != want:
+            fail(f"mesh {arch} {n_data}x{n_model}: (bd layers, B/device, gather B, "
+                 f"overhead) {got} != the JAX planner's {want}")
+        out[f"{arch} {n_data}x{n_model}"] = tot
+        print(f"phase 13a: {arch} {n_data}x{n_model}: verified clean, {len(got[0])} bd "
+              f"layers, {got[1]} B/device, {got[2]} gather B, overhead {got[3]:.3f} "
+              f"(the JAX planner's)")
+    return out
+
+
+def mesh_cases(program, arch: str, dev, ragged: bool):
+    """(label, x, m_active) of each sharded forward: the compiled batch at
+    m_active None, 1 and per layer, and the ragged batch (MobileNet 2x1)."""
+    x = torch.randn(MESH_SHAPES[arch], generator=torch.Generator().manual_seed(13)).to(dev)
+    per_layer = [1 + (i % 2) for i in range(len(program))]
+    cases = [("none", x, None), ("one", x, 1), ("per_layer", x, per_layer)]
+    if ragged:
+        cases.append(("ragged", x[:MESH_RAGGED], per_layer))
+    return cases
+
+
+def mesh_images() -> np.ndarray:
+    shape = (MESH_SERVE_BATCHES * SERVE_BATCH,) + MESH_SHAPES["mobilenet"][1:]
+    return torch.randn(shape, generator=torch.Generator().manual_seed(14)).numpy()
+
+
+def mesh_serve(program, plan, dev) -> tuple[torch.Tensor, dict]:
+    """10 batches of 16 through CNNService (``mesh_plan=plan`` or None);
+    returns the logits in request order and the launches of the path."""
+    images = mesh_images()
+    svc = CNNService(program, batch_size=SERVE_BATCH, max_queue=SERVE_BATCH,
+                     mesh_plan=plan)
+    logits = []
+    ops.reset_launch_counts()
+    for b in range(MESH_SERVE_BATCHES):
+        reqs = [svc.submit(img) for img in images[b * SERVE_BATCH:(b + 1) * SERVE_BATCH]]
+        svc.step()
+        if any(r.status != "done" for r in reqs):
+            raise RuntimeError(f"mesh service: {[r.status for r in reqs]}, {svc.stats}")
+        logits.append(torch.stack([r.logits for r in reqs]))
+    torch.cuda.synchronize()
+    return torch.cat(logits), ops.launch_counts()
+
+
+def mesh_rank(rank: int, world: int, ckpt_root: str, runs, serve, device: str) -> dict:
+    """One rank of 13b-d on ``device``: load the saved programs, run each
+    plan's sharded forwards with the launches and plan picks of each one
+    gated, time the forward at the compiled batch (CUDA events) and, with
+    ``serve``, run the mesh service."""
+    dev = torch.device(device)
+    quant = QuantConfig(mode="binary", M=2)
+    programs = {}
+    for arch in {a for a, _ in runs} | ({serve[0]} if serve else set()):
+        like = deploy.abstract_program(arch, quant, MESH_SHAPES[arch], device=dev)
+        programs[arch] = deploy.load_program(
+            CheckpointManager(str(Path(ckpt_root) / arch), scrub=False), 0, like)
+    out = {"logits": {}, "launches": {k: 0 for k in TPU_KERNELS}, "ms": {}}
+    for arch, (n_data, n_model) in runs:
+        program = programs[arch]
+        plan = mesh_dist.plan_mesh(program, n_data=n_data, n_model=n_model)
+        cases = mesh_cases(program, arch, dev,
+                           ragged=(arch, n_data, n_model) == ("mobilenet", 2, 1))
+        for label, x, m in cases:
+            ops.reset_launch_counts()
+            picks = ops.plan_pick_count()
+            y = mesh_dist.execute_sharded(program, plan, x, m)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            if ops.plan_pick_count() != picks:
+                raise RuntimeError(f"{arch} {n_data}x{n_model} {label}: "
+                                   f"{ops.plan_pick_count() - picks} plan picks")
+            if counts != EXPECTED_LAUNCHES[arch]:
+                raise RuntimeError(f"{arch} {n_data}x{n_model} {label}: rank {rank} "
+                                   f"launched {counts} != {EXPECTED_LAUNCHES[arch]}")
+            for k, v in counts.items():
+                out["launches"][k] += v
+            out["logits"][(arch, n_data, n_model, label)] = y.cpu().numpy()
+        x = cases[0][1]
+        out["ms"][(arch, n_data, n_model)] = median_ms(
+            lambda: mesh_dist.execute_sharded(program, plan, x))
+    if serve:
+        arch, (n_data, n_model) = serve
+        plan = mesh_dist.plan_mesh(programs[arch], n_data=n_data, n_model=n_model)
+        logits, counts = mesh_serve(programs[arch], plan, dev)
+        out["serve"] = logits.numpy()
+        want = {k: MESH_SERVE_BATCHES * v for k, v in EXPECTED_LAUNCHES[arch].items()}
+        if counts != want:
+            raise RuntimeError(f"mesh service: rank {rank} launched {counts} != {want}")
+        for k, v in counts.items():
+            out["launches"][k] += v
+    out["cache"] = mesh_dist.cache_stats()
+    return out
+
+
+def median_ms(fn, warm: int = 2) -> float:
+    """Median of ``MESH_TIMED`` calls after ``warm``, CUDA events around
+    each call and a wait for its end (host work and collectives included)."""
+    times = []
+    for _ in range(warm + MESH_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[warm:])
+
+
+def mesh_phase(programs: dict, dev, out_dir: Path, smi: str) -> dict:
+    """Phase 13: (a) the planner and verifier on the abstract programs;
+    (b) phase 2-3's programs saved, loaded by ranks spawned on the one
+    card (gloo) and run sharded, each forward torch.equal to single-process
+    execute; (c) the mesh service against the plain one; (d) times."""
+    t0 = time.time()
+    res = {"static": mesh_static(), "backend": "gloo",
+           "launches": {k: 0 for k in TPU_KERNELS}}
+    ckpt_root = out_dir / "mesh_prog"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    for arch, program in programs.items():
+        deploy.save_program(CheckpointManager(str(ckpt_root / arch)), 0, program)
+    want = {(arch, label): deploy.execute(program, x, m).cpu()
+            for arch, program in programs.items()
+            for label, x, m in mesh_cases(program, arch, dev, ragged=arch == "mobilenet")}
+    single = {}
+    for arch, program in programs.items():
+        x = mesh_cases(program, arch, dev, False)[0][1]
+        single[arch] = median_ms(lambda: deploy.execute(program, x))
+    plain_serve, _ = mesh_serve(programs[MESH_SERVE[0]], None, dev)
+    checked, cache = 0, []
+    for world, runs in MESH_RUNS.items():
+        t1 = time.time()
+        serve = MESH_SERVE if world == 2 else None
+        per_rank = mesh_dist.run_local(world, mesh_rank, str(ckpt_root), runs, serve,
+                                       str(dev), backend="gloo", device=str(dev),
+                                       timeout_s=600)
+        for rank, r in enumerate(per_rank):
+            for (arch, n_data, n_model, label), y in r["logits"].items():
+                y = torch.from_numpy(y)
+                if not torch.equal(y, want[(arch, label)]):
+                    d = float((y - want[(arch, label)]).abs().max())
+                    fail(f"mesh {arch} {n_data}x{n_model} {label}: rank {rank} differs "
+                         f"from single-process execute (max |d| {d:.3g})")
+                checked += 1
+            if serve and not torch.equal(torch.from_numpy(r["serve"]), plain_serve):
+                fail(f"mesh service {serve}: rank {rank}'s answers differ from the "
+                     f"single-process service's")
+            for k, v in r["launches"].items():
+                res["launches"][k] += v
+            cache.append(r["cache"])
+        for arch, (n_data, n_model) in runs:
+            ms = per_rank[0]["ms"][(arch, n_data, n_model)]
+            res[f"{arch} {n_data}x{n_model}"] = {"sharded_ms": ms, "single_ms": single[arch]}
+            print(f"phase 13d: {arch} {n_data}x{n_model} at batch {MESH_SHAPES[arch][0]}: "
+                  f"median sharded forward {ms:.3f} ms (rank 0, CUDA events) vs "
+                  f"single-process execute {single[arch]:.3f} ms; gloo, all {world} ranks on "
+                  f"one card: a correctness run that says nothing of scaling; {smi}")
+        print(f"phase 13b: world {world}: {len(runs)} plans, {time.time() - t1:.1f} s")
+    res["cache"] = cache
+    res["seconds"] = time.time() - t0
+    print(f"phase 13b: {checked} sharded forwards torch.equal to single-process execute, "
+          f"no plan pick, one launch per instruction per rank; 13c: the mesh service "
+          f"({MESH_SERVE[0]} {MESH_SERVE[1][0]}x{MESH_SERVE[1][1]}, {MESH_SERVE_BATCHES} "
+          f"batches of {SERVE_BATCH}) equal to the plain one on both ranks; gloo's "
+          f"all_gather took {dev.type} tensors")
+    print(f"phase 13: {res['seconds']:.1f} s; launches {res['launches']}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -3021,6 +3252,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     encdec = encdec_phase(gen, dev, out_dir)
     encdec_launches = encdec["launches"]
+    gc.collect()                      # phase 12's models are gone: their memory goes back
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(programs, dev, out_dir, smi)
+    mesh_launches = mesh["launches"]
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -3032,7 +3267,7 @@ def main() -> int:
             "launches": (launches[name] + lm["serve"]["launches"][name]
                          + train["cnn_a"]["launches"][name] + fuzz_launches[name]
                          + soak_launches[name] + moe_launches[name] + ssm_launches[name]
-                         + encdec_launches[name]),
+                         + encdec_launches[name] + mesh_launches[name]),
             "max_abs_err": max([max_err[name]] + (
                 [lm["max_abs_err"]] + [moe[a]["max_abs_err"] for a in MOE_ARCHS]
                 + [ssm[a]["max_abs_err"] for a in SSM_ARCHS]
@@ -3046,20 +3281,21 @@ def main() -> int:
             "train_launches": train["cnn_a"]["launches"][name],
             "fuzz_launches": fuzz_launches[name], "soak_launches": soak_launches[name],
             "moe_launches": moe_launches[name], "ssm_launches": ssm_launches[name],
-            "encdec_launches": encdec_launches[name]})
+            "encdec_launches": encdec_launches[name], "mesh_launches": mesh_launches[name]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
          "kernels": kernels, "layers": rows, "forward": forward, "profiles": profiles,
          "serve": serve, "lm": lm, "train": train, "verify": verify, "moe": moe, "ssm": ssm,
-         "encdec": encdec},
+         "encdec": encdec, "mesh": mesh},
         indent=1))
     print("timings: ms, plain_ms, library_ms and bound_ms sum one forward of CNN-A "
           "(batch 64) and one of MobileNetV1-224 (batch 16); launches counts phases 2 "
           "and 3 (three calls of each network), phase 7's serving of gemma-2b, phase "
           "8a's execute of the retrained CNN-A, phase 9a's fuzz, phase 9c's soaks, phase "
-          "10's serving of DeepSeek-V3 and grok-1, phase 11's of mamba2-2.7b and zamba2-7b "
-          "and phase 12's of whisper-medium and internvl2-2b; the LM shapes' times are under "
-          "\"lm\", \"moe\", \"ssm\" and \"encdec\" in chiprun_out/chip_smoke.json")
+          "10's serving of DeepSeek-V3 and grok-1, phase 11's of mamba2-2.7b and zamba2-7b, "
+          "phase 12's of whisper-medium and internvl2-2b and phase 13's ranks; the LM shapes' "
+          "times are under \"lm\", \"moe\", \"ssm\" and \"encdec\", phase 13's under "
+          "\"mesh\" in chiprun_out/chip_smoke.json")
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

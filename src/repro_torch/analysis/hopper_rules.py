@@ -8,6 +8,10 @@ before its first launch instead of at it.  ERROR: a launcher would refuse
 the program, or run another schedule than the one frozen in it; WARN:
 legal but not what ``compile`` would have made.
 
+``MESH_RULES`` are ``verify_mesh_plan``'s, on a ``distributed.MeshPlan``:
+the JAX package's ``shard-*`` ids, with ``shard-tile`` in place of Mosaic's
+``shard-lane``.
+
 ``TRACE_RULES`` are the rules ``trace_lint.py`` checks on what one
 ``execute`` call runs, with the JAX package's ids; ``verify_program``
 never raises them.
@@ -72,6 +76,27 @@ RULES: dict[str, Rule] = {r.id: r for r in [
     Rule("stats-drift", WARN,
          "LayerStats disagree with the values re-derived from the program "
          "(out_shape, padded_in, macs, weight_bytes)"),
+]}
+
+
+MESH_RULES: dict[str, Rule] = {r.id: r for r in [
+    Rule("shard-divisibility", ERROR,
+         "a bd-sharded layer's output channels must divide evenly over the "
+         "model axis (and the recorded d_local must be that quotient)"),
+    Rule("shard-tile", ERROR,
+         "a bd shard's device-local plan must lie in the conv plan space, "
+         "hold whole pool windows and fit one H100 block's shared memory "
+         "(binary_conv.check_plan); takes the place of Mosaic's shard-lane"),
+    Rule("shard-plan", ERROR,
+         "MeshPlan structure must match the program: axes >= 1, one "
+         "LayerShard per instruction, bd only on ConvInstr, with a frozen "
+         "device-local plan"),
+    Rule("shard-accounting", WARN,
+         "LayerShard per-device weight bytes disagree with the stats' split "
+         "(replicated copy vs weight_bytes / n_model)"),
+    Rule("shard-batch", WARN,
+         "global batch not divisible by the data axis: the last rank "
+         "carries zero images every forward"),
 ]}
 
 

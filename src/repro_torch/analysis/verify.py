@@ -30,7 +30,7 @@ from repro_torch.kernels import ops
 class Finding:
     """One verifier result: a rule id, where it fired, and why."""
 
-    rule: str        # id in hopper_rules.RULES or TRACE_RULES
+    rule: str        # id in hopper_rules.RULES, MESH_RULES or TRACE_RULES
     severity: str    # ERROR | WARN
     instr: str       # instruction name ("" = program level)
     index: int       # instruction index (-1 = program level)
@@ -46,7 +46,8 @@ class ProgramVerificationError(ValueError):
 
 
 def make_finding(rule: str, instr: str, index: int, message: str) -> Finding:
-    spec = hopper_rules.RULES.get(rule) or hopper_rules.TRACE_RULES[rule]
+    spec = (hopper_rules.RULES.get(rule) or hopper_rules.MESH_RULES.get(rule)
+            or hopper_rules.TRACE_RULES[rule])
     return Finding(rule=rule, severity=spec.severity,
                    instr=instr, index=index, message=message)
 
@@ -284,3 +285,76 @@ def assert_verified(program: BinArrayProgram) -> list[Finding]:
         raise ProgramVerificationError(
             f"{len(errors)} ERROR finding(s):\n" + "\n".join(f"  {f}" for f in errors))
     return findings
+
+
+def verify_mesh_plan(program: BinArrayProgram, plan) -> list[Finding]:
+    """Statically verify a :class:`~repro_torch.distributed.plan.MeshPlan`
+    against its program (port of the JAX ``verify_mesh_plan``): shard
+    arity and kinds (``shard-plan``), channel divisibility over the model
+    axis (``shard-divisibility``), each device-local bd plan against the
+    conv kernel's plan space, pool windows and shared memory
+    (``shard-tile``, which also covers the JAX function's per-device
+    ``vmem-budget`` finding), the per-rank byte accounting
+    (``shard-accounting``) and a ragged global batch (``shard-batch``).
+    Returns all findings, ERRORs first; an empty list is clean.  Reads
+    shapes and fields only, like :func:`verify_program`."""
+    fs: list[Finding] = []
+    if plan.n_data < 1 or plan.n_model < 1:
+        return [make_finding("shard-plan", "", -1,
+                             f"mesh axes must be >= 1, got n_data={plan.n_data}, "
+                             f"n_model={plan.n_model}")]
+    if len(plan.shards) != len(program.instrs):
+        return [make_finding("shard-plan", "", -1,
+                             f"MeshPlan carries {len(plan.shards)} LayerShard(s) for "
+                             f"{len(program.instrs)} instruction(s)")]
+    if plan.global_batch % plan.n_data:
+        fs.append(make_finding(
+            "shard-batch", "", -1,
+            f"global_batch={plan.global_batch} % n_data={plan.n_data} != 0: every "
+            f"forward pads {(-plan.global_batch) % plan.n_data} zero image(s)"))
+    for idx, (instr, s) in enumerate(zip(program.instrs, plan.shards)):
+        name, wb = instr.name, int(instr.stats.weight_bytes)
+        if s.kind == "replicated":
+            if s.per_device_weight_bytes and s.per_device_weight_bytes != wb:
+                fs.append(make_finding(
+                    "shard-accounting", name, idx,
+                    f"replicated shard records {s.per_device_weight_bytes} B/device, "
+                    f"stats say the full copy is {wb} B"))
+            continue
+        if s.kind != "bd":
+            fs.append(make_finding("shard-plan", name, idx,
+                                   f"unknown shard kind {s.kind!r} (replicated | bd)"))
+            continue
+        if not isinstance(instr, ConvInstr):
+            fs.append(make_finding("shard-plan", name, idx,
+                                   f"bd sharding applies to ConvInstr only, got {instr.kind}"))
+            continue
+        D = int(instr.alpha.shape[-1])
+        if D % plan.n_model:
+            fs.append(make_finding(
+                "shard-divisibility", name, idx,
+                f"D={D} output channels do not divide over n_model={plan.n_model}"))
+            continue
+        d_local = D // plan.n_model
+        if s.d_local != d_local:
+            fs.append(make_finding(
+                "shard-divisibility", name, idx,
+                f"recorded d_local={s.d_local} != D/n_model = {d_local}"))
+        if s.plan is None or len(s.plan) != 2:
+            fs.append(make_finding(
+                "shard-plan", name, idx,
+                f"bd shard needs a frozen device-local (rows, cols) plan, got {s.plan}"))
+            continue
+        try:
+            bck.check_plan(tuple(s.plan), instr.pool)
+        except ValueError as e:
+            fs.append(make_finding("shard-tile", name, idx,
+                                   f"device-local plan (d_local={d_local}): {e}"))
+        if s.per_device_weight_bytes and s.per_device_weight_bytes != wb // plan.n_model:
+            fs.append(make_finding(
+                "shard-accounting", name, idx,
+                f"bd shard records {s.per_device_weight_bytes} B/device, stats split "
+                f"gives {wb // plan.n_model} B (weight_bytes={wb}, "
+                f"n_model={plan.n_model})"))
+    fs.sort(key=lambda f: (f.severity != hopper_rules.ERROR, f.index))
+    return fs

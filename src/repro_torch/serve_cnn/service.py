@@ -31,6 +31,14 @@ on the same padded batch at the same schedule (``last_batch`` /
 ``repro_torch.deploy.executor.execute`` at call time, so the fault
 injector's patch (``testing.faults.inject_faults``) reaches it while
 ``repro_torch.deploy.execute`` stays the clean reference.
+
+With ``mesh_plan`` every rank of the mesh runs its own service over the
+same requests, and each batch runs through ``distributed.execute_sharded``.
+Each rank's SLO controller reads its own clock, so ranks may disagree on a
+step's schedule or batch, and the collectives would then mix answers or
+hang; so every step serves rank 0's batch and schedule, broadcast over the
+world group before the first attempt (rank 0's decisions alone set the
+answers).
 """
 from __future__ import annotations
 
@@ -107,6 +115,10 @@ class CNNService:
     execute_fn:   ``fn(program, x, m_active)``; default late-binds
                   ``repro_torch.deploy.executor.execute`` so fault-injection
                   patches apply.
+    mesh_plan:    a ``distributed.MeshPlan`` for ``program``; batches then
+                  run through ``distributed.execute_sharded`` on every rank
+                  of the mesh, each rank serving rank 0's batch and schedule.
+                  ``batch_size`` must divide over its data axis.
     selftest_every: run the golden self-test (always the clean execute
                   path) on the active rung every this-many served batches,
                   plus once at startup and on every rung change.  Requires
@@ -129,6 +141,7 @@ class CNNService:
                  clock=time.monotonic,
                  sleep=time.sleep,
                  execute_fn=None,
+                 mesh_plan=None,
                  initial_rung: int = 0,
                  selftest_every: int | None = None,
                  checkpoint_manager=None,
@@ -150,6 +163,18 @@ class CNNService:
         self.backoff_s = float(backoff_s)
         self.clock = clock
         self.sleep = sleep
+        if mesh_plan is not None:
+            if len(mesh_plan.shards) != len(program.instrs):
+                raise ValueError(
+                    f"mesh_plan carries {len(mesh_plan.shards)} shard(s) "
+                    f"for a {len(program.instrs)}-instruction program")
+            if batch_size % mesh_plan.n_data:
+                raise ValueError(
+                    f"batch_size={batch_size} must divide over the mesh "
+                    f"data axis (n_data={mesh_plan.n_data}): the service "
+                    f"pads every batch to batch_size, so an uneven split "
+                    f"wastes a rank every step")
+        self.mesh_plan = mesh_plan
         self._execute_fn = execute_fn
         self.selftest_every = selftest_every
         self.checkpoint_manager = checkpoint_manager
@@ -244,6 +269,8 @@ class CNNService:
         for i, req in enumerate(batch):
             x_np[i] = req.image
         x = torch.from_numpy(x_np).to(self.program.device)
+        if self.mesh_plan is not None:
+            rung, sched = self._follow_rank0(x, rung, sched)
 
         out, err = None, None
         for attempt in range(self.max_retries + 1):
@@ -355,9 +382,28 @@ class CNNService:
         self._stats["reloads"] += 1
         self.last_reload_step = step
 
+    def _follow_rank0(self, x, rung, sched):
+        """Overwrite ``x`` in place with rank 0's batch and return rank 0's
+        rung and schedule (a no-op outside a process group of 2+ ranks)."""
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() < 2:
+            return rung, sched
+        head = torch.tensor((rung,) + tuple(sched), dtype=torch.int64,
+                            device=x.device)
+        dist.broadcast(head, src=0)
+        dist.broadcast(x, src=0)
+        head = head.tolist()
+        return head[0], tuple(head[1:])
+
     def _execute(self, x, sched):
         if self._execute_fn is not None:
             return self._execute_fn(self.program, x, sched)
+        if self.mesh_plan is not None:
+            from repro_torch.distributed import executor as dist_executor
+
+            return dist_executor.execute_sharded(self.program, self.mesh_plan, x,
+                                                 m_active=sched)
         # late binding: resolve the module attribute at call time so an
         # inject_faults patch is seen (deploy.execute stays clean)
         from repro_torch.deploy import executor

@@ -192,16 +192,11 @@ def test_entry_points_default_to_the_card_and_raise_without_one(trees):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    code = ("import sys; import repro_torch, repro_torch.deploy, repro_torch.models.cnn, "
-            "repro_torch.convert, repro_torch.kernels.ops, repro_torch.checkpoint.manager, "
-            "repro_torch.deploy.selftest, repro_torch.analysis.verify, "
-            "repro_torch.serve_cnn, repro_torch.testing.faults, repro_torch.configs.base, "
-            "repro_torch.models.api, repro_torch.launch.serve, repro_torch.data.images, "
-            "repro_torch.data.tokens, repro_torch.optim, repro_torch.core.quant, "
-            "repro_torch.core.compress, repro_torch.launch.steps, repro_torch.launch.train, "
-            "repro_torch.runtime.trainer, repro_torch.testing.soak, "
-            "repro_torch.testing.fuzz, repro_torch.testing.scenarios, "
-            "repro_torch.analysis.trace_lint; "
+    # every module of the package, found by walking it (a hand list misses new ones)
+    code = ("import importlib, pkgutil, sys, repro_torch; "
+            "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.')]; [importlib.import_module(n) for n in names]; "
+            "assert 'repro_torch.distributed.executor' in names, names; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.'))"
             " or m == 'repro']; print(bad); sys.exit(1 if bad else 0)")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}

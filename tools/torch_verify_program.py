@@ -3,10 +3,10 @@
 
     python3 tools/torch_verify_program.py [--json PATH] [--skip-retrace]
                                           [--device cuda|cpu]
+                                          [--mesh devices=N[,model=K]]
 
-Port of ``tools/verify_program.py`` (without ``--mesh``, which waits for
-the port's ``distributed/``).  For each program of the table below (the
-JAX benchmark's: CNN-A, MobileNet-B1, MobileNet-B2):
+Port of ``tools/verify_program.py``.  For each program of the table below
+(the JAX benchmark's: CNN-A, MobileNet-B1, MobileNet-B2):
 
   1. ``repro_torch.analysis.verify_program`` on the abstract compile —
      packed widths, alpha shapes, plan ranges, shared memory, stats drift;
@@ -15,9 +15,15 @@ JAX benchmark's: CNN-A, MobileNet-B1, MobileNet-B2):
      library conv or product, no plan pick, no float64;
   3. on the card, unless ``--skip-retrace``, ``trace_lint.retrace_findings``
      over 3x repeated mixed-``m_active`` traffic — no new picks or kernel
-     libraries, one launch per instruction per call.
+     libraries, one launch per instruction per call;
+  4. with ``--mesh devices=N[,model=K]``: ``distributed.plan_mesh`` onto
+     the N-rank mesh (K-way model parallelism, data parallelism fills the
+     rest) and ``analysis.verify_mesh_plan`` over the result: shard
+     structure, channel divisibility, each device-local plan against the
+     conv kernel, byte accounting.  Static only: no process group is
+     touched, so an 8-rank plan audits on one CPU.
 
-``--device cpu`` runs step 1 only: on the CPU ``execute`` runs the plain
+``--device cpu`` runs steps 1 and 4 only: on the CPU ``execute`` runs the plain
 versions, which use library ops by design.  Prints every finding and exits
 1 if any ERROR surfaced.
 """
@@ -32,7 +38,9 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "src"))
 from repro_torch import deploy, resolve_device  # noqa: E402
-from repro_torch.analysis import summarize, trace_lint, verify_program  # noqa: E402
+from repro_torch import distributed  # noqa: E402
+from repro_torch.analysis import (summarize, trace_lint, verify_mesh_plan,  # noqa: E402
+                                  verify_program)
 from repro_torch.core.binlinear import QuantConfig  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 
@@ -42,6 +50,36 @@ PROGRAMS = {
     "mobilenet_b1": ("mobilenet", (8, 128, 128, 3), {"width_mult": 0.5}),
     "mobilenet_b2": ("mobilenet", (8, 224, 224, 3), {}),
 }
+
+
+def parse_mesh(spec: str) -> tuple[int, int]:
+    """``devices=N[,model=K]`` -> (n_data, n_model); K must divide N."""
+    fields = dict(part.split("=", 1) for part in spec.split(",") if part)
+    unknown = set(fields) - {"devices", "model"}
+    if unknown or "devices" not in fields:
+        raise SystemExit(f"--mesh expects devices=N[,model=K], got {spec!r}")
+    devices = int(fields["devices"])
+    n_model = int(fields.get("model", 1))
+    if devices < 1 or n_model < 1 or devices % n_model:
+        raise SystemExit(f"--mesh: model={n_model} must divide devices={devices}")
+    return devices // n_model, n_model
+
+
+def mesh_audit(key: str, program, mesh: tuple[int, int]) -> tuple[dict, int]:
+    """Plan ``program`` onto the mesh and verify the plan; returns the
+    JSON section and its ERROR count."""
+    n_data, n_model = mesh
+    plan = distributed.plan_mesh(program, n_data=n_data, n_model=n_model)
+    fs = verify_mesh_plan(program, plan)
+    summ = summarize(fs)
+    print(f"{key} @ mesh {n_data}x{n_model}: {summ['errors']} error(s), "
+          f"{summ['warnings']} warning(s), "
+          f"{sum(1 for s in plan.shards if s.kind == 'bd')} bd-sharded layer(s)")
+    for f in fs:
+        print(f"  {f}")
+    return ({"n_data": n_data, "n_model": n_model, "summary": summ,
+             "findings": [vars(f) for f in fs],
+             "totals": distributed.mesh_totals(program, plan)}, summ["errors"])
 
 
 def concrete(arch: str, shape, kw: dict, quant, dev):
@@ -61,14 +99,19 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-retrace", action="store_true",
                     help="skip the (executing) retrace check on the card")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default="", metavar="devices=N[,model=K]",
+                    help="also plan each program onto this mesh and audit the "
+                         "MeshPlan (verify_mesh_plan)")
     args = ap.parse_args(argv)
+    mesh = parse_mesh(args.mesh) if args.mesh else None
     dev = resolve_device(args.device)
 
     quant = QuantConfig(mode="binary", M=2, K_iters=1)
     doc: dict = {"device": str(dev)}
     n_errors = 0
     for key, (arch, shape, kw) in PROGRAMS.items():
-        fs = verify_program(deploy.abstract_program(arch, quant, shape, **kw, device=dev))
+        abstract = deploy.abstract_program(arch, quant, shape, **kw, device=dev)
+        fs = verify_program(abstract)
         if dev.type == "cuda":
             program = concrete(arch, shape, kw, quant, dev)
             fs += verify_program(program)
@@ -85,6 +128,9 @@ def main(argv=None) -> int:
         print(f"{key}: {summ['errors']} error(s), {summ['warnings']} warning(s)")
         for f in fs:
             print(f"  {f}")
+        if mesh is not None:
+            doc[key]["mesh"], errors = mesh_audit(key, abstract, mesh)
+            n_errors += errors
 
     if args.json:
         with open(args.json, "w") as f:
@@ -92,6 +138,8 @@ def main(argv=None) -> int:
         print(f"findings written to {args.json}")
     steps = "static" if dev.type == "cpu" else "static + lint" + (
         "" if args.skip_retrace else " + retrace")
+    if mesh is not None:
+        steps += f" + mesh {mesh[0]}x{mesh[1]}"
     print(f"torch_verify_program ({steps} on {dev}): {'FAIL' if n_errors else 'OK'} "
           f"({n_errors} ERROR finding(s))")
     return 1 if n_errors else 0
