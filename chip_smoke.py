@@ -190,7 +190,26 @@ source, all at once) and runs, each phase failing loudly:
      MobileNet 1x2 over 10 batches of 16 on both ranks, equal to the plain
      service; (d) the median sharded forward (rank 0, CUDA events) beside
      single-process ``execute``: every rank shares one card, so these say
-     nothing of scaling.  Numbers under ``"mesh"``.
+     nothing of scaling.  Numbers under ``"mesh"``;
+ 14. the sharded LM (``sharding/``, ``launch/{mesh,steps,pipeline}.py``
+     over DTensor): (a) the rules' specs and per-rank parameter bytes of
+     gemma-2b's fp and packed trees at 2x1, 1x2, 2x2 and 16x16; (b) the
+     packed gemma-2b (phase 7's build, fp32, M=2) saved to a temporary
+     checkpoint and restored by ranks spawned with ``run_local`` on the one
+     card (gloo), whose ``build_serve_step`` decode steps at 8 slots
+     (2x1 and 2x2 FSDP and TP-only, 1x2 once: with one data rank the two
+     are the same layout; bf16 at 2x2) hold every binary
+     linear's columns ``torch.equal`` to the single-process kernel's, the
+     logits within rtol 1e-4 / atol 1e-4·max|logit| (bf16: 2e-2) of
+     single-process ``decode_step`` and 126 matmul launches per rank per
+     step, plus a 1x2 prefill of 2 x 64 tokens; (c) gemma-2b cut to 2
+     layers, fp32: a dense mesh train step at 2x1 and at 1x2 with each
+     leaf's update within 1e-3 of single-process's, two fake-quant mesh
+     steps at 2x1 and 1x2 against single-process, a Trainer saving at 2x1
+     and resuming at 1x2 with the state ``torch.equal``; (d) a GPipe
+     pipeline of 2 full-width packed
+     layers against ``reference_apply``.  Times are rank 0's beside the
+     single-process step: no scaling claim.  Numbers under ``"mesh_lm"``.
 
 Weights are random, drawn from a seeded generator.  The logits of phases 2
 and 3 are compared with rtol 1e-4 and atol 1e-4·max|logit| (a relative
@@ -198,17 +217,18 @@ floor: the reference's random MobileNet init shrinks activations to ~1e-13
 by the head, and 28 layers of fp32 sums run in another order on each side).
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` counts the main
-paths of phases 2, 3, 7, 8a, 9a, 9c, 10, 11, 12 and 13, ``cnn_launches`` phases 2-3,
+paths of phases 2, 3, 7, 8a, 9a, 9c, 10, 11, 12, 13 and 14, ``cnn_launches`` phases 2-3,
 ``serve_launches`` phase 6, ``lm_launches`` phase 7's serving,
 ``train_launches`` phase 8a's execute, ``fuzz_launches`` phase 9a's
 ``execute`` calls, ``soak_launches`` phase 9c's soaks, ``moe_launches``
 phase 10's serving, ``ssm_launches`` phase 11's, ``encdec_launches``
-phase 12's and ``mesh_launches`` phase 13's ranks), nvidia-smi's line,
+phase 12's, ``mesh_launches`` phase 13's ranks and ``mesh_lm_launches``
+phase 14's), nvidia-smi's line,
 and last ``{"ok": true, "device": {...}}``; per-instruction numbers go to
 ``chiprun_out/chip_smoke.json``, phase 7's under ``"lm"``, phase 8's under
 ``"train"``, phase 9's under ``"verify"``, phase 10's under ``"moe"``,
 phase 11's under ``"ssm"``, phase 12's under ``"encdec"``, phase 13's under
-``"mesh"``.  Exits non-zero,
+``"mesh"``, phase 14's under ``"mesh_lm"``.  Exits non-zero,
 printing no result, without
 a card or without the repository's ``src/`` beside it.
 """
@@ -225,6 +245,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -259,6 +280,7 @@ try:
     from repro_torch.testing.faults import FaultInjector, FaultPlan, inject_faults
     from repro_torch.analysis import trace_lint, verify_mesh_plan, verify_program
     from repro_torch import distributed as mesh_dist
+    from repro_torch.sharding import placement as pl
     from repro_torch.testing import fuzz
     from repro_torch.testing import scenarios as soak_sc
     from repro_torch.testing.soak import TrendViolation, run_soak
@@ -747,7 +769,7 @@ def lm_config():
         dtype="float32", quant=QuantConfig(mode="binary", M=2, K_iters=8))
 
 
-def build_lm(cfg, dev) -> tuple[dict, dict]:
+def build_lm(cfg, dev, where: str = "phase 7") -> tuple[dict, dict]:
     """Phase 7: the weights drawn on the card from a seeded generator, each
     layer binarized as soon as it is drawn (its fp32 latent weights freed),
     so the 7.9 GB of fp32 layer weights are never held at once."""
@@ -775,7 +797,7 @@ def build_lm(cfg, dev) -> tuple[dict, dict]:
             "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
             "packed_gb": sum(t.numel() for t in leaves if t.dtype == torch.uint8) / 1e9}
-    print(f"phase 7: gemma-2b {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+    print(f"{where}: gemma-2b {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab}: built in {info['build_s']:.2f} s, of which binarize "
           f"{bin_s:.2f} s (Algorithm 2, M=2, K_iters 8); packed weights "
           f"{info['packed_gb']:.3f} GB; card memory in use {info['memory_allocated_gb']:.2f} GB "
@@ -3089,11 +3111,11 @@ def mesh_rank(rank: int, world: int, ckpt_root: str, runs, serve, device: str) -
     return out
 
 
-def median_ms(fn, warm: int = 2) -> float:
-    """Median of ``MESH_TIMED`` calls after ``warm``, CUDA events around
-    each call and a wait for its end (host work and collectives included)."""
+def median_ms(fn, warm: int = 2, reps: int = MESH_TIMED) -> float:
+    """Median of ``reps`` calls after ``warm``, CUDA events around each call
+    and a wait for its end (host work and collectives included)."""
     times = []
-    for _ in range(warm + MESH_TIMED):
+    for _ in range(warm + reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -3160,6 +3182,478 @@ def mesh_phase(programs: dict, dev, out_dir: Path, smi: str) -> dict:
           f"batches of {SERVE_BATCH}) equal to the plain one on both ranks; gloo's "
           f"all_gather took {dev.type} tensors")
     print(f"phase 13: {res['seconds']:.1f} s; launches {res['launches']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the sharded LM (sharding/, launch/{mesh,steps,pipeline}.py over
+# DTensor; several ranks on the one card through gloo)
+# ---------------------------------------------------------------------------
+
+MESH_LM_STATIC = {"2x1": {"data": 2, "model": 1}, "1x2": {"data": 1, "model": 2},
+                  "2x2": {"data": 2, "model": 2}, "16x16": {"data": 16, "model": 16}}
+MESH_LM_RUNS = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}    # world size -> its decode meshes
+MESH_LM_SLOTS, MESH_LM_LEN = 8, 128
+MESH_LM_POS = (5, 17, 30, 64, 90, 100, 120, 127)      # each slot's position
+MESH_LM_PREFILL = (2, 64)                             # rows x tokens, at 1x2
+MESH_LM_TIMED = 2
+MESH_LM_LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+                   ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down"))  # call order
+MESH_LM_BF16_RTOL = 2e-2          # tests/test_torch_mesh_lm.py's bf16 tolerance
+MESH_TRAIN_DEPTH, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_LR = 2, 8, 64, 0.5
+MESH_TRAIN_TOL = (1e-4, 1e-2)   # loss rtol, fake-quant update's L2 rtol over the whole tree
+MESH_TRAIN_DENSE_TOL = 1e-3     # each leaf's update against its own L2 (dense: no sign flips)
+MESH_PIPE_X, MESH_PIPE_MICRO = (8, 64, 2048), 4
+MESH_LM_PER_STEP = len(MESH_LM_LINEARS) * 18          # gemma-2b's binary linears per pass
+MESH_LM_BUDGET_S = 90                                 # the time phase 14 was planned to take
+
+
+def mesh_lm_static(cfg) -> dict:
+    """14a: the rules' specs for gemma-2b's fp and packed trees at 2x1, 1x2,
+    2x2 and the production 16x16 (axis sizes only), and each rank's
+    parameter bytes under them."""
+    from repro_torch.sharding import rules as shr
+
+    trees = {"fp": api.param_shapes(cfg), "packed": api.param_shapes(cfg, qc=cfg.quant)}
+    out = {}
+    for name, sizes in MESH_LM_STATIC.items():
+        row = {}
+        for kind, shapes in trees.items():
+            total = nbytes_of(shapes)
+            for fsdp in (True, False):
+                specs = shr.param_pspecs(cfg, shapes, sizes, fsdp=fsdp)
+                per_rank = 0
+                for t, s in zip(cm.tree_leaves(shapes), cm.tree_leaves(specs)):
+                    split = math.prod(sizes[a] for e in s if e for a in
+                                      ((e,) if isinstance(e, str) else e))
+                    per_rank += -(-t.numel() // split) * t.element_size()
+                if per_rank * math.prod(sizes.values()) < total:
+                    fail(f"mesh LM {name} {kind}: {per_rank} B per rank cannot hold {total} B")
+                row[f"{kind} {'fsdp' if fsdp else 'tp'}"] = per_rank
+        want = shr.P(None, None, ("data",), "model") if sizes["data"] > 1 else None
+        got = shr.param_pspecs(cfg, trees["packed"], sizes)["layers"]["ffn"]["w_up"]["B_packed"]
+        if want is not None and sizes["model"] > 1 and got != want:
+            fail(f"mesh LM {name}: w_up's packed spec {got} != {want}")
+        out[name] = row
+        print(f"phase 14a: gemma-2b at {name}: parameter bytes per rank "
+              + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in row.items())
+              + f" (whole: fp {nbytes_of(trees['fp']) / 1e9:.3f} GB, packed "
+              f"{nbytes_of(trees['packed']) / 1e9:.3f} GB)")
+    return out
+
+
+def mesh_lm_inputs(cfg, dev) -> dict:
+    """The decode batch: tokens, each slot's position and a cache of random
+    keys and values (the same in every process: drawn on the host)."""
+    gen = torch.Generator().manual_seed(14)
+    cache = cm.tree_map(lambda s: torch.randn(s.shape, generator=gen).to(dev, s.dtype),
+                        api.cache_specs(cfg, MESH_LM_SLOTS, MESH_LM_LEN))
+    return {"tokens": torch.randint(0, cfg.vocab, (MESH_LM_SLOTS, 1), generator=gen,
+                                    dtype=torch.int32).to(dev),
+            "pos": torch.tensor(MESH_LM_POS, dtype=torch.int32).to(dev), "cache": cache}
+
+
+def bf16_tree(cfg, packed):
+    """``cfg`` and its packed tree in bf16 (the embedding and norms cast;
+    the packed bits and fp32 alphas kept, as binarize makes them)."""
+    return cfg.replace(dtype="bfloat16"), cm.tree_map(
+        lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 and t.ndim < 4 else t,
+        packed)
+
+
+@contextlib.contextmanager
+def recorded_matmuls(calls: list):
+    """``ops.binary_matmul`` recording each call's (x, B, alpha, kw, y)."""
+    real = ops.binary_matmul
+
+    def rec(x, B_packed, alpha, **kw):
+        y = real(x, B_packed, alpha, **kw)
+        calls.append((x, B_packed, alpha, kw, y))
+        return y
+    ops.binary_matmul = rec
+    try:
+        yield
+    finally:
+        ops.binary_matmul = real
+
+
+def linears_vs_single(calls: list, full: dict, mesh) -> int:
+    """Each recorded linear of a step (layer by layer, in MESH_LM_LINEARS'
+    order) against the single-process kernel on the whole weight and the
+    same rows: the rank's columns ``torch.equal`` to the same columns of
+    the whole output (so the gather over ``"model"`` equals it)."""
+    if len(calls) != len(MESH_LM_LINEARS) * full["layers"]["ln1"]["scale"].shape[0]:
+        raise RuntimeError(f"{len(calls)} binary linears in a step")
+    col = mesh.get_local_rank("model")
+    for i, (x, B, alpha, kw, y) in enumerate(calls):
+        a, w = MESH_LM_LINEARS[i % len(MESH_LM_LINEARS)]
+        lin = full["layers"][a][w]
+        l = i // len(MESH_LM_LINEARS)
+        whole = ops.binary_matmul(x, lin["B_packed"][l], lin["alpha"][l], **kw)
+        n = B.shape[-1]
+        if not torch.equal(y, whole[..., col * n:(col + 1) * n]):
+            d = float((y - whole[..., col * n:(col + 1) * n]).abs().max())
+            raise RuntimeError(f"layer {l} {a}/{w}: the rank's columns differ from the "
+                               f"single-process kernel's (max |d| {d:.3g})")
+    return len(calls)
+
+
+def counted_step(fn) -> tuple:
+    """``fn()`` with the matmul launches it made."""
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()["binary_matmul"]
+
+
+def close_to(where: str, got: torch.Tensor, want: torch.Tensor, rtol: float) -> float:
+    """rtol / atol rtol·max|want|; returns max|d| / max|want|."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or not torch.allclose(got, want, rtol=rtol,
+                                                                  atol=rtol * scale):
+        raise RuntimeError(f"{where}: max |d| {err:.3g}, max |x| {scale:.3g}")
+    return err / scale
+
+
+def gathered_weight_bytes(cfg, full, mesh_shape, fsdp: bool) -> int:
+    """Weight bytes a rank receives per step from the FSDP gathers: each
+    FSDP-split leaf's (the ``B_packed``s' and the embedding table's) part
+    on the rank's model coordinate, less the rank's own share."""
+    n_data, n_model = mesh_shape
+    if not fsdp or n_data == 1:
+        return 0
+    from repro_torch.sharding import rules as shr
+
+    specs = shr.param_pspecs(cfg, full, {"data": n_data, "model": n_model})
+    total = 0
+    for t, s in zip(cm.tree_leaves(full), cm.tree_leaves(specs)):
+        if any(e == ("data",) for e in s):
+            total += t.numel() * t.element_size() // n_model * (n_data - 1) // n_data
+    return total
+
+
+def decode_case(cfg, full, mesh, shape, fsdp: bool, dev, rtol: float = 1e-4) -> dict:
+    """One decode step of ``cfg`` on ``mesh``: launches, the linears against
+    the single-process kernel, the logits against single-process
+    ``api.decode_step`` in this process, then MESH_LM_TIMED timed steps."""
+    where = f"{shape[0]}x{shape[1]} {cfg.dtype} fsdp={fsdp}"
+    step = train_steps.build_serve_step(cfg, mesh, fsdp_params=fsdp)
+    params = step.shard_params(full)
+    inputs = mesh_lm_inputs(cfg, dev)
+    want, _ = api.decode_step(cfg, full, dict(inputs, cache=cm.tree_map(torch.clone,
+                                                                        inputs["cache"])))
+    batch = step.shard_batch(inputs)
+    calls = []
+    with recorded_matmuls(calls):
+        (logits, _), n = counted_step(lambda: step(params, batch))
+    launches = [n]
+    checked = linears_vs_single(calls, full, mesh)
+    del calls
+    err = close_to(f"mesh LM decode {where}: logits vs single-process",
+                   logits.full_tensor(), want, rtol)
+    times = []
+    for _ in range(MESH_LM_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, n = counted_step(lambda: step(params, batch))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        launches.append(n)
+    if any(n != MESH_LM_PER_STEP for n in launches):
+        raise RuntimeError(f"mesh LM decode {where}: launches per step {launches}, "
+                           f"want {MESH_LM_PER_STEP}")
+    return {"launches": sum(launches), "linears_equal": checked, "logit_err": err,
+            "step_ms": statistics.median(times),
+            "gathered_weight_bytes": gathered_weight_bytes(cfg, full, shape, fsdp)}
+
+
+def prefill_case(cfg, full, mesh, shape, dev) -> dict:
+    """One prefill forward (MESH_LM_PREFILL) on ``mesh`` against
+    single-process ``api.forward``."""
+    step = train_steps.build_serve_step(cfg, mesh, kind="prefill")
+    rows, n_tok = MESH_LM_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (rows, n_tok), generator=torch.Generator()
+                           .manual_seed(15), dtype=torch.int32).to(dev)
+    want, _ = api.forward(cfg, full, {"tokens": tokens})
+    calls = []
+    with recorded_matmuls(calls):
+        logits, n = counted_step(lambda: step(step.shard_params(full),
+                                              step.shard_batch({"tokens": tokens})))
+    if n != MESH_LM_PER_STEP:
+        raise RuntimeError(f"mesh LM prefill {shape}: {n} launches, want {MESH_LM_PER_STEP}")
+    checked = linears_vs_single(calls, full, mesh)
+    del calls
+    err = close_to(f"mesh LM prefill {shape}: logits vs single-process", logits.full_tensor(),
+                   want, 1e-4)
+    return {"launches": n, "linears_equal": checked, "logit_err": err}
+
+
+def pipeline_case(cfg, full, mesh, dev) -> dict:
+    """14d: two stages of one full-width packed gemma layer each through
+    ``pipeline_apply`` against ``reference_apply``."""
+    from repro_torch.launch import pipeline as lpipe
+
+    stages = cm.tree_map(lambda t: t[:2], full["layers"])
+    x = torch.randn(MESH_PIPE_X, generator=torch.Generator().manual_seed(16)).to(dev)
+
+    def stage_fn(p, h):
+        return tf.layer_forward(p, h, cfg)[0]
+    y, n = counted_step(lambda: lpipe.pipeline_apply(stage_fn, stages, x, mesh=mesh,
+                                                     n_micro=MESH_PIPE_MICRO))
+    want_n = (MESH_PIPE_MICRO + 1) * len(MESH_LM_LINEARS)
+    if n != want_n:
+        raise RuntimeError(f"pipeline: {n} launches on this rank, want {want_n}")
+    err = close_to("pipeline vs reference_apply", y,
+                   lpipe.reference_apply(stage_fn, stages, x), 1e-4)
+    return {"launches": n, "err": err}
+
+
+def mesh_train_config():
+    """gemma-2b at full width cut to MESH_TRAIN_DEPTH layers, fp32,
+    fake-quant M=2 linears."""
+    return get_config("gemma_2b").replace(
+        n_layers=MESH_TRAIN_DEPTH, dtype="float32",
+        quant=QuantConfig(mode="fake_quant", M=2, K_iters=8))
+
+
+def train_case(dev, meshes: dict, ckpt_dir: str) -> dict:
+    """14c: gemma-2b cut to MESH_TRAIN_DEPTH layers, SGD with momentum (the
+    update follows the gradient).  Dense: one step at 2x1 and one at 1x2
+    against one single-process step, each leaf's update within
+    MESH_TRAIN_DENSE_TOL of its own L2 (a wrong gradient on any leaf, a
+    norm scale's too, shows; the whole tree's L2 would hide a small leaf).  Fake-quant
+    M=2: two mesh steps at 1x2, and a Trainer's two at 2x1 that then
+    saves, against two single-process steps within MESH_TRAIN_TOL
+    (Algorithm 2 solves alpha over the rank's columns, and a residual
+    within rounding of 0 takes another sign there, which moves W_hat by
+    2·alpha; each leaf's worst ratio is reported); a Trainer at 1x2 that
+    resumes from the save (restore(shardings=): params and momenta
+    torch.equal to the saved ones), whose step function then runs one step
+    more (``Trainer.run`` would save again: 6.3 GB through one card's
+    gloo, which the CPU test covers)."""
+    from repro_torch.optim import sgd
+
+    cfg = mesh_train_config()
+    dense = cfg.replace(quant=cfg.quant.replace(mode="dense"))
+    opt = sgd(MESH_TRAIN_LR)
+    loss_rtol, update_rtol = MESH_TRAIN_TOL
+
+    def data():
+        return SyntheticTokens(cfg.vocab, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, device=dev)
+
+    def trainer(mesh, total):
+        return Trainer(train_steps.build_train_step(cfg, opt, mesh=mesh),
+                       train_steps.init_train_state(cfg, opt, device=dev, mesh=mesh),
+                       data(), TrainerConfig(total_steps=total, checkpoint_every=2,
+                                             checkpoint_dir=ckpt_dir, log_every=1000),
+                       state_shardings=train_steps.train_state_shardings(cfg, mesh, opt))
+
+    def run(c, mesh, n):
+        state = train_steps.init_train_state(c, opt, device=dev, mesh=mesh)
+        fn, src, losses = train_steps.build_train_step(c, opt, mesh=mesh), data(), []
+        for _ in range(n):
+            state, met = fn(state, src.next_batch())
+            losses.append(float(met["loss"]))
+        return state, losses
+
+    def l2(x, y):
+        return float(torch.linalg.vector_norm(pl.full(x) - y, dtype=torch.float64))
+
+    def whole(a, b):
+        """||a - b|| in L2 over the whole tree."""
+        return sum(l2(x, y) ** 2 for x, y in zip(cm.tree_leaves(a), cm.tree_leaves(b))) ** 0.5
+
+    def worst_leaf(got, want, init):
+        """The largest ||got - want|| / ||want - init|| over the leaves."""
+        return max(l2(g, w) / max(l2(w, i), 1e-30) for g, w, i in
+                   zip(*(cm.tree_leaves(t) for t in (got, want, init))))
+
+    init = cm.tree_map(torch.clone, train_steps.init_train_state(cfg, opt, device=dev)["params"])
+    out = {}
+    t0 = time.time()
+    ref, ref_losses = run(dense, None, 1)
+    out["dense"] = {"ref_losses": ref_losses}
+    for shape in ((2, 1), (1, 2)):
+        state, losses = run(dense, meshes[shape], 1)
+        worst = worst_leaf(state["params"], ref["params"], init)
+        if not (np.allclose(losses, ref_losses, rtol=loss_rtol)
+                and worst <= MESH_TRAIN_DENSE_TOL):
+            raise RuntimeError(f"mesh train dense {shape}: losses {losses} vs {ref_losses}; a "
+                               f"leaf {worst:.3g} of its own update from single-process")
+        out["dense"][f"{shape[0]}x{shape[1]}"] = {"losses": losses, "worst_leaf": worst}
+        del state
+    out["dense"]["seconds"] = time.time() - t0
+    ref, ref_losses = run(cfg, None, 2)
+    update = whole(ref["params"], init)
+    out.update(ref_losses=ref_losses, update_l2=update)
+
+    def check(shape, state, losses, seconds):
+        err = whole(state["params"], ref["params"])
+        if not (np.allclose(losses, ref_losses, rtol=loss_rtol) and err <= update_rtol * update):
+            raise RuntimeError(f"mesh train {shape}: losses {losses} vs {ref_losses}; params "
+                               f"{err:.3g} (L2) from single-process, the update's L2 "
+                               f"{update:.3g}")
+        out[f"{shape[0]}x{shape[1]}"] = {
+            "losses": losses, "param_err_over_update": err / update,
+            "worst_leaf": worst_leaf(state["params"], ref["params"], init), "seconds": seconds}
+
+    t0 = time.time()
+    state, losses = run(cfg, meshes[(1, 2)], 2)
+    check((1, 2), state, losses, time.time() - t0)
+    del state
+    t0 = time.time()
+    first = trainer(meshes[(2, 1)], 2)
+    report = first.run()
+    out["save_s"] = time.time() - t0
+    check((2, 1), first.state, report.losses, out["save_s"])
+    del ref, init
+    saved = {k: cm.tree_map(pl.full, first.state[k]) for k in ("params", "opt_state")}
+    del first
+    t0 = time.time()
+    second = trainer(meshes[(1, 2)], 3)
+    if not second.maybe_resume() or second.report.resumed_from != 2:
+        raise RuntimeError("mesh train: the 1x2 Trainer did not resume from step 2")
+    for a, b in zip(cm.tree_leaves(saved), cm.tree_leaves(
+            {k: second.state[k] for k in ("params", "opt_state")})):
+        if tuple(b.device_mesh.shape) != (1, 2) or not torch.equal(a, pl.full(b)):
+            raise RuntimeError("mesh train: the state restored onto 1x2 differs from the "
+                               "state saved at 2x1")
+    del saved
+    out["restore_s"] = time.time() - t0
+    second.state, met = second.step_fn(second.state, second.data.next_batch())
+    out["resumed_loss"] = float(met["loss"])
+    if not math.isfinite(out["resumed_loss"]) or int(second.state["step"]) != 3:
+        raise RuntimeError(f"mesh train: the resumed step gave loss {out['resumed_loss']}, "
+                           f"step {int(second.state['step'])}")
+    return out
+
+
+def mesh_lm_rank(rank: int, world: int, ckpt_dir: str, runs, device: str) -> dict:
+    """One rank of 14b-d: the packed gemma-2b restored whole onto the card,
+    each mesh of ``runs``' decode steps (fp32, FSDP and TP-only where the
+    data axis splits; bf16 at 2x2), at world 2 the 1x2 prefill, the
+    pipeline and the train step."""
+    import faulthandler
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import pipeline as lpipe
+
+    faulthandler.enable()       # a crash in a collective names its frame
+    dev = torch.device(device)
+    cfg = lm_config()
+    like = cm.tree_map(lambda t: torch.empty((), dtype=t.dtype, device=dev).expand(t.shape),
+                       api.param_shapes(cfg, qc=cfg.quant))
+    full, _ = CheckpointManager(ckpt_dir, scrub=False).restore(0, like)
+    out = {"decode": {}, "launches": 0}
+    for shape in runs:
+        mesh = lmesh.make_host_mesh(shape[1], device=dev)
+        # with one data rank, FSDP splits nothing: the same placements as TP-only
+        for fsdp in (True, False)[:1 + (shape[0] > 1)]:
+            r = decode_case(cfg, full, mesh, shape, fsdp, dev)
+            out["decode"][(shape, "float32", fsdp)] = r
+            out["launches"] += r["launches"]
+        if shape == (2, 2):
+            cfg16, full16 = bf16_tree(cfg, full)
+            r = decode_case(cfg16, full16, mesh, shape, True, dev, rtol=MESH_LM_BF16_RTOL)
+            out["decode"][(shape, "bfloat16", True)] = r
+            out["launches"] += r["launches"]
+            del full16
+        if shape == (1, 2):
+            out["prefill"] = prefill_case(cfg, full, mesh, shape, dev)
+            out["launches"] += out["prefill"]["launches"]
+    if world == 2:
+        out["pipeline"] = pipeline_case(cfg, full, lpipe.make_pipeline_mesh(2, device=dev), dev)
+        out["launches"] += out["pipeline"]["launches"]
+        del full
+        torch.cuda.empty_cache()
+        meshes = {(2, 1): lmesh.make_host_mesh(1, device=dev),
+                  (1, 2): lmesh.make_host_mesh(2, device=dev)}
+        out["train"] = train_case(dev, meshes, str(Path(ckpt_dir).parent / "train"))
+    return out
+
+
+def mesh_lm_phase(dev, out_dir: Path, smi: str) -> dict:
+    """Phase 14: (a) the rules' specs and per-rank bytes; (b) the packed
+    gemma-2b built (phase 7's build), saved, and restored by ranks spawned
+    on the one card (gloo), whose sharded decode steps hold each linear
+    ``torch.equal`` to the single-process kernel and the logits to
+    single-process ``decode_step``, 126 launches per rank per step; (c) the
+    mesh train step, save at 2x1 and restore onto 1x2; (d) the pipeline."""
+    t0 = time.time()
+    cfg = lm_config()
+    res = {"static": mesh_lm_static(cfg), "backend": "gloo"}
+    params, info = build_lm(cfg, dev, "phase 14b")
+    res["build_s"] = info["build_s"]
+    inputs = mesh_lm_inputs(cfg, dev)
+    single = median_ms(lambda: api.decode_step(cfg, params, inputs), reps=MESH_LM_TIMED)
+    # the checkpoints (2.6 GB packed, 6.3 GB of train state) live only as
+    # long as the phase: chiprun_out/ comes back from the card whole
+    tmp = tempfile.TemporaryDirectory(dir=out_dir, prefix="mesh_lm_")
+    ckpt = Path(tmp.name)
+    t1 = time.time()
+    CheckpointManager(str(ckpt / "packed")).save(0, params)
+    res["save_s"] = time.time() - t1
+    res["single_step_ms"] = single
+    del params, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 14b: packed gemma-2b built in {info['build_s']:.1f} s and saved in "
+          f"{res['save_s']:.1f} s; single-process decode step at {MESH_LM_SLOTS} slots "
+          f"{single:.3f} ms (median of {MESH_LM_TIMED}, CUDA events); {smi}")
+    res["launches"] = {k: 0 for k in TPU_KERNELS}
+    for world, runs in MESH_LM_RUNS.items():
+        t1 = time.time()
+        per_rank = mesh_dist.run_local(world, mesh_lm_rank, str(ckpt / "packed"), runs,
+                                       str(dev), backend="gloo", device=str(dev),
+                                       timeout_s=900)
+        for r in per_rank:
+            res["launches"]["binary_matmul"] += r["launches"]
+        for (shape, dtype, fsdp), r in per_rank[0]["decode"].items():
+            key = f"{shape[0]}x{shape[1]} {dtype} {'fsdp' if fsdp else 'tp'}"
+            res[key] = r
+            print(f"phase 14b: {key}: {MESH_LM_PER_STEP} launches per rank per step, "
+                  f"{r['linears_equal']} linears torch.equal to the single-process kernel, "
+                  f"logits {r['logit_err']:.3g}·max|logit| from single-process; median step "
+                  f"{r['step_ms']:.1f} ms on rank 0 vs single-process {single:.3f} ms; "
+                  f"FSDP weights gathered per rank per step (packed linears and the fp32 "
+                  f"embedding table) {r['gathered_weight_bytes'] / 1e6:.1f} MB; gloo, all "
+                  f"{world} ranks on one "
+                  f"card: says nothing of scaling; {smi}")
+        if "prefill" in per_rank[0]:
+            r = per_rank[0]["prefill"]
+            res["prefill 1x2"] = r
+            print(f"phase 14b: prefill of {MESH_LM_PREFILL[0]} x {MESH_LM_PREFILL[1]} tokens at "
+                  f"1x2: {r['launches']} launches per rank, {r['linears_equal']} linears "
+                  f"torch.equal, logits {r['logit_err']:.3g}·max|logit| from single-process")
+        if "train" in per_rank[0]:
+            tr = res["train"] = per_rank[0]["train"]
+            dn = tr["dense"]
+            print(f"phase 14c: gemma-2b cut to {MESH_TRAIN_DEPTH} layers, fp32 dense, one step "
+                  f"against single-process: worst leaf {dn['2x1']['worst_leaf']:.3g} / "
+                  f"{dn['1x2']['worst_leaf']:.3g} of its own update at 2x1 / 1x2 (gate "
+                  f"{MESH_TRAIN_DENSE_TOL:g}), losses {dn['2x1']['losses']} / "
+                  f"{dn['1x2']['losses']} vs {dn['ref_losses']}, {dn['seconds']:.1f} s")
+            print(f"phase 14c: fp32 fake-quant, two steps against single-process: at 1x2 params "
+                  f"{tr['1x2']['param_err_over_update']:.3g} of the update in L2 (worst leaf "
+                  f"{tr['1x2']['worst_leaf']:.3g} of its own), at 2x1 (a Trainer) "
+                  f"{tr['2x1']['param_err_over_update']:.3g} (worst leaf "
+                  f"{tr['2x1']['worst_leaf']:.3g}); losses "
+                  f"{tr['1x2']['losses']} / {tr['2x1']['losses']} vs {tr['ref_losses']}; the "
+                  f"Trainer's 2 steps and save {tr['save_s']:.1f} s, resumed at 1x2 with params "
+                  f"and momenta torch.equal ({tr['restore_s']:.1f} s), one more step: loss "
+                  f"{tr['resumed_loss']:.4f}")
+            p = res["pipeline"] = per_rank[0]["pipeline"]
+            print(f"phase 14d: GPipe, 2 stages of one gemma-2b layer, {MESH_PIPE_MICRO} "
+                  f"microbatches of {MESH_PIPE_X}: {p['err']:.3g}·max|y| from reference_apply, "
+                  f"{p['launches']} launches per rank")
+        print(f"phase 14: world {world}: {time.time() - t1:.1f} s")
+    tmp.cleanup()
+    res["seconds"] = time.time() - t0
+    print(f"phase 14: {res['seconds']:.1f} s (budget {MESH_LM_BUDGET_S} s); launches "
+          f"{res['launches']}")
     return res
 
 
@@ -3256,6 +3750,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh = mesh_phase(programs, dev, out_dir, smi)
     mesh_launches = mesh["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_lm = mesh_lm_phase(dev, out_dir, smi)
+    mesh_lm_launches = mesh_lm["launches"]
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -3267,7 +3765,8 @@ def main() -> int:
             "launches": (launches[name] + lm["serve"]["launches"][name]
                          + train["cnn_a"]["launches"][name] + fuzz_launches[name]
                          + soak_launches[name] + moe_launches[name] + ssm_launches[name]
-                         + encdec_launches[name] + mesh_launches[name]),
+                         + encdec_launches[name] + mesh_launches[name]
+                         + mesh_lm_launches[name]),
             "max_abs_err": max([max_err[name]] + (
                 [lm["max_abs_err"]] + [moe[a]["max_abs_err"] for a in MOE_ARCHS]
                 + [ssm[a]["max_abs_err"] for a in SSM_ARCHS]
@@ -3281,21 +3780,22 @@ def main() -> int:
             "train_launches": train["cnn_a"]["launches"][name],
             "fuzz_launches": fuzz_launches[name], "soak_launches": soak_launches[name],
             "moe_launches": moe_launches[name], "ssm_launches": ssm_launches[name],
-            "encdec_launches": encdec_launches[name], "mesh_launches": mesh_launches[name]})
+            "encdec_launches": encdec_launches[name], "mesh_launches": mesh_launches[name],
+            "mesh_lm_launches": mesh_lm_launches[name]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
          "kernels": kernels, "layers": rows, "forward": forward, "profiles": profiles,
          "serve": serve, "lm": lm, "train": train, "verify": verify, "moe": moe, "ssm": ssm,
-         "encdec": encdec, "mesh": mesh},
+         "encdec": encdec, "mesh": mesh, "mesh_lm": mesh_lm},
         indent=1))
     print("timings: ms, plain_ms, library_ms and bound_ms sum one forward of CNN-A "
           "(batch 64) and one of MobileNetV1-224 (batch 16); launches counts phases 2 "
           "and 3 (three calls of each network), phase 7's serving of gemma-2b, phase "
           "8a's execute of the retrained CNN-A, phase 9a's fuzz, phase 9c's soaks, phase "
           "10's serving of DeepSeek-V3 and grok-1, phase 11's of mamba2-2.7b and zamba2-7b, "
-          "phase 12's of whisper-medium and internvl2-2b and phase 13's ranks; the LM shapes' "
-          "times are under \"lm\", \"moe\", \"ssm\" and \"encdec\", phase 13's under "
-          "\"mesh\" in chiprun_out/chip_smoke.json")
+          "phase 12's of whisper-medium and internvl2-2b and phases 13 and 14's ranks; the LM "
+          "shapes' times are under \"lm\", \"moe\", \"ssm\" and \"encdec\", phase 13's under "
+          "\"mesh\" and phase 14's under \"mesh_lm\" in chiprun_out/chip_smoke.json")
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

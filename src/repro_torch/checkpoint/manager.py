@@ -26,6 +26,13 @@ frozen dataclasses that name their tensor fields in ``TREE_FIELDS`` (the
 port's program and instructions); ``None`` holds no leaf.  Paths are the
 JAX package's: dict keys, sequence indices and field names joined by
 ``/``, fields in ``TREE_FIELDS`` order.
+
+Sharded state: a DTensor leaf is saved whole (the JAX format has no
+shards), so a save with DTensor leaves is a collective that every rank of
+their process group calls; rank 0 writes and the others wait for its
+commit.  ``restore(shardings=...)`` places each leaf onto its
+``NamedSharding`` (``sharding/placement.py``), which need not be the mesh
+it was saved from: reshard-on-restore, each rank keeping its own shard.
 """
 from __future__ import annotations
 
@@ -40,6 +47,9 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.sharding import placement as pl
 
 _TMP_PREFIX = ".tmp_ckpt_"
 _DISPLACED_PREFIX = ".displaced_"
@@ -166,7 +176,7 @@ _BF16_STORED = np.dtype("V2")
 
 def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = pl.full(leaf.detach()).cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(_BF16_STORED)
         return t.numpy()
@@ -249,8 +259,30 @@ class CheckpointManager:
         ``host_<id>.npz`` + ``manifest_host_<id>.json`` in a temp dir and
         merge-commits them with per-file atomic ``os.replace``, so
         concurrent hosts never displace each other's files.
+
+        DTensor leaves are gathered whole, one leaf at a time, on every rank
+        (a collective); only rank 0 of the process group copies them to the
+        host and writes, and every rank returns after its commit.
         """
         flat, _ = _flatten_with_paths(state)
+        if any(pl.is_dtensor(v) for v in flat.values()):
+            writer = dist.get_rank() == 0
+            hosts = {}
+            for k, v in flat.items():
+                whole = pl.full(v.detach()) if isinstance(v, torch.Tensor) else v
+                if writer:
+                    hosts[k] = _to_host(whole)
+                del whole
+            step_dir = self._step_dir(step)
+            try:
+                if writer:
+                    step_dir = self._save(step, hosts, extra)
+            finally:
+                dist.barrier()
+            return step_dir
+        return self._save(step, flat, extra)
+
+    def _save(self, step: int, flat: dict, extra: dict | None) -> str:
         step_dir = self._step_dir(step)
         tmp = tempfile.mkdtemp(dir=self.dir, prefix=_TMP_PREFIX)
         displaced = None
@@ -485,11 +517,15 @@ class CheckpointManager:
                 report["ok"] = False
         return report
 
-    def restore(self, step: int, target, *, allow_cast: bool = False,
+    def restore(self, step: int, target, *, shardings=None, allow_cast: bool = False,
                 verify: bool = True):
         """target: a tree of like-structured tensors (or numpy arrays).
         Returns ``(restored, extra)``: the target's structure with every
         leaf loaded from disk, each tensor on its target tensor's device.
+        shardings: an optional tree like ``target`` of ``NamedSharding``
+        (None for a leaf left whole): each leaf is placed onto it, a DTensor
+        of which every rank keeps its own shard (reshard-on-restore for
+        elastic scaling).
 
         Every leaf is digest-verified against the manifest, and its loaded
         shape/dtype must match the target exactly; a dtype difference raises
@@ -498,6 +534,7 @@ class CheckpointManager:
         """
         meta, data = self._read_step(step, verify=verify)
         flat_t, treedef = _flatten_with_paths(target)
+        flat_s = _flatten_with_paths(shardings)[0] if shardings is not None else {}
         out = []
         for key, tgt in flat_t.items():
             nkey = key.replace("/", "__")
@@ -520,10 +557,10 @@ class CheckpointManager:
                         f"allow_cast=True for an explicit conversion)",
                         step=step, leaf=key)
                 arr = arr.astype(want_dtype)
-            if isinstance(tgt, torch.Tensor):
-                out.append(_to_tensor(arr, tgt))
-            else:
-                out.append(arr)
+            val = _to_tensor(arr, tgt) if isinstance(tgt, torch.Tensor) else arr
+            if flat_s.get(key) is not None:
+                val = flat_s[key].place(torch.as_tensor(val))
+            out.append(val)
         return _unflatten(treedef, out), meta["extra"]
 
     # ------------------------------------------------- last-known-good ---
@@ -549,7 +586,7 @@ class CheckpointManager:
         return sorted(d for d in os.listdir(self.dir)
                       if d.startswith(_QUARANTINE_PREFIX))
 
-    def restore_latest_good(self, target, *, allow_cast: bool = False,
+    def restore_latest_good(self, target, *, shardings=None, allow_cast: bool = False,
                             validate=None):
         """Walk steps newest-first to the first one that restores cleanly.
 
@@ -566,7 +603,7 @@ class CheckpointManager:
         rejected = []
         for step in reversed(steps):
             try:
-                restored, extra = self.restore(step, target,
+                restored, extra = self.restore(step, target, shardings=shardings,
                                                allow_cast=allow_cast)
                 if validate is not None:
                     validate(restored, extra)

@@ -1,15 +1,18 @@
-"""Architecture config schema and registry (port of ``repro/configs/base.py``).
+"""Architecture config schema, registry and input specs (port of
+``repro/configs/base.py``).
 
 Every ported architecture has one ``configs/<id>.py`` exporting ``CONFIG``
 (the JAX package's file with its import pointed here); ``get_config(name)``
 resolves it and ``reduced(cfg)`` shrinks it for CPU tests.  ``ArchConfig``
 holds the JAX package's fields that the dense, MoE, SSM (Mamba2), hybrid
 (Zamba2), enc-dec (Whisper) and VLM (InternVL2) families read, under the
-same names and defaults, and the two training knobs (``remat``,
-``onehot_loss``); the JAX package's sharding knobs come with
-``distributed/``.  The dry run's shape cells
-and input specs (``SHAPES``, ``input_specs``, ``cells``) are not ported yet
-(ROADMAP item 14).
+same names and defaults, the two training knobs (``remat``,
+``onehot_loss``) and the two sharding knobs (``serve_fsdp``,
+``kv_seq_shard``, read by ``sharding/rules.py`` and
+``launch/steps.build_serve_step``).  ``SHAPES`` and ``input_specs(cfg,
+shape)`` give the shape cells' model inputs as ``meta`` tensors (shape and
+dtype only, the JAX package's ``ShapeDtypeStruct``s).  The dry run's
+``cells`` is not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -19,6 +22,16 @@ import importlib
 import torch
 
 from repro_torch.core.binlinear import QuantConfig
+
+# ---------------------------------------------------------------------------
+# Shape cells (the JAX package's): seq_len x global_batch
+# ---------------------------------------------------------------------------
+SHAPES: dict[str, dict] = {
+    "train_4k":    dict(seq_len=4_096,   global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32_768,  global_batch=32,  kind="prefill"),
+    "decode_32k":  dict(seq_len=32_768,  global_batch=128, kind="decode"),
+    "long_500k":   dict(seq_len=524_288, global_batch=1,   kind="decode"),
+}
 
 ARCH_IDS = ["gemma_2b", "qwen3_14b", "h2o_danube_1_8b", "codeqwen15_7b",
             "zamba2_7b", "mamba2_2_7b", "grok_1_314b", "deepseek_v3_671b",
@@ -80,6 +93,11 @@ class ArchConfig:
     remat: bool = True               # recompute each layer's forward in backward
     attn_chunk: int | None = None    # query-chunked attention (flash-style)
     onehot_loss: bool = False        # CE as logsumexp minus a one-hot contraction
+    # --- sharding knobs (the JAX package's) ---
+    serve_fsdp: bool = True          # False: TP-only params at serve time
+    kv_seq_shard: bool = False       # decode cache: shard seq dim on 'model'
+                                     # (vs head_dim) when kv heads don't
+                                     # divide the model axis
 
     @property
     def resolved_head_dim(self) -> int:
@@ -125,3 +143,39 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     if cfg.n_image_tokens:
         kw.update(n_image_tokens=8)
     return cfg.replace(**kw)
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors: shape and dtype, no storage)
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> dict:
+    """Every model input of this (arch, shape) cell as a ``meta`` tensor.
+
+    train/prefill: full-sequence batch. decode: one new token + KV/SSM cache
+    of seq_len.  Modality frontends are stubs: precomputed embeddings appear
+    as inputs (the VLM's patch and the enc-dec's frame embeddings).
+    """
+    sh = SHAPES[shape_name]
+    B, S = sh["global_batch"], sh["seq_len"]
+    dt = cfg.torch_dtype
+    if sh["kind"] in ("train", "prefill"):
+        specs = {"tokens": _spec((B, S), torch.int32)}
+        if sh["kind"] == "train":
+            specs["labels"] = _spec((B, S), torch.int32)
+        if cfg.family == "vlm":
+            specs["patch_embeds"] = _spec((B, cfg.n_image_tokens, cfg.d_model), dt)
+        if cfg.family == "encdec":
+            specs["frame_embeds"] = _spec((B, cfg.encoder_len, cfg.d_model), dt)
+        return specs
+    from repro_torch.models import api   # api -> models -> this module
+    from repro_torch.models.common import tree_map
+
+    # (vlm patch / encdec frame context lives inside the cache at decode time)
+    return {"tokens": _spec((B, 1), torch.int32), "pos": _spec((B,), torch.int32),
+            "cache": tree_map(lambda s: _spec(s.shape, s.dtype),
+                              api.cache_specs(cfg, batch=B, max_len=S))}

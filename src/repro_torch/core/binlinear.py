@@ -11,6 +11,13 @@ Two execution modes of ``apply_linear``, keyed on the params' form:
     Algorithm 1/2 reconstruction of W and a straight-through gradient to the
     latent fp weights (``binarize.fake_quant``).
 
+Over a mesh (weights that are DTensors, ``launch/steps.py``) every linear
+is column-parallel: the rank's input rows are gathered whole along K and
+its output columns are computed whole, by the kernel on the rank's local
+column shard for a packed tree and by Algorithm 2 on the local columns for
+fake_quant (both reduce over K, which is never split).  The output is a
+DTensor split on ``"model"``.
+
 ``m_active`` is the paper's runtime accuracy<->throughput switch (§IV-D);
 ``m_schedule`` gives it per decoder layer (``models/common.layer_quant_cfg``
 resolves it).  The JAX package's ``use_pallas`` / ``interpret`` /
@@ -26,6 +33,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import binarize as bz
+from repro_torch.sharding import placement as pl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,14 +78,25 @@ def binarize_params(params: dict, qc: QuantConfig) -> dict:
     return out
 
 
+def packed_shapes(params: dict, qc: QuantConfig) -> dict:
+    """``binarize_params``'s output as ``meta`` tensors, from ``params``'
+    shapes alone: ``B_packed`` uint8 [M, ceil(K/8), N], ``alpha`` float32
+    [M, G, N] (G = K // group_size, 1 per output channel), ``b`` kept."""
+    K, N = params["w"].shape
+    G = 1 if qc.group_size is None else K // qc.group_size
+    out = {"B_packed": torch.empty((qc.M, -(-K // 8), N), dtype=torch.uint8, device="meta"),
+           "alpha": torch.empty((qc.M, G, N), dtype=torch.float32, device="meta")}
+    if "b" in params:
+        out["b"] = params["b"]
+    return out
+
+
 def apply_linear(params: dict, x: torch.Tensor, qc: QuantConfig = DENSE) -> torch.Tensor:
     """y = quantized-linear(x): x [..., K] -> [..., N] in x's dtype."""
     if "B_packed" in params:
         y = _apply_binary(params, x, qc)
     elif qc.mode == "fake_quant":
-        W_hat = bz.fake_quant(params["w"].to(torch.float32), qc.M, algorithm=qc.algorithm,
-                              K_iters=qc.K_iters, group_size=qc.group_size)
-        y = x @ W_hat.to(x.dtype)
+        y = x @ _fake_quant_weight(params["w"], qc).to(x.dtype)
     else:
         y = x @ params["w"].to(x.dtype)
     if "b" in params:
@@ -85,12 +104,37 @@ def apply_linear(params: dict, x: torch.Tensor, qc: QuantConfig = DENSE) -> torc
     return y
 
 
+def _fake_quant_weight(w: torch.Tensor, qc: QuantConfig) -> torch.Tensor:
+    """STE(W_hat) of an fp weight; a DTensor weight is binarized on the
+    rank's whole-K column shard (its FSDP dim gathered first, so Algorithm
+    2's per-column alpha sees whole columns)."""
+    def quant(W):
+        return bz.fake_quant(W.to(torch.float32), qc.M, algorithm=qc.algorithm,
+                             K_iters=qc.K_iters, group_size=qc.group_size)
+
+    if not pl.is_dtensor(w):
+        return quant(w)
+    cols, placements = pl.columns(w)
+    return pl.from_local(quant(cols), w.device_mesh, placements, w.shape)
+
+
 def _apply_binary(params: dict, x: torch.Tensor, qc: QuantConfig) -> torch.Tensor:
     """Deployment path over packed weights (paper Eq. 8); K and group_size
-    are re-derived from shapes (K = x's trailing dim, group_size = K // G)."""
+    are re-derived from shapes (K = x's trailing dim, group_size = K // G).
+    With DTensor weights the kernel runs on the rank's column shard and the
+    rank's rows of x (``sharding/placement.py``): it launches there or
+    raises, it never falls back to gathering the whole weight."""
     from repro_torch.kernels import ops as kops   # ops -> binconv -> this module
 
+    B_packed, alpha = params["B_packed"], params["alpha"]
     K = x.shape[-1]
-    return kops.binary_matmul(x, params["B_packed"], params["alpha"], K=K,
-                              group_size=K // params["alpha"].shape[1],
-                              m_active=qc.m_active or params["alpha"].shape[0])
+    m_active = qc.m_active or alpha.shape[0]
+    if not pl.is_dtensor(B_packed):
+        return kops.binary_matmul(x, B_packed, alpha, K=K, group_size=K // alpha.shape[1],
+                                  m_active=m_active)
+    mesh = B_packed.device_mesh
+    (B_loc, _), (a_loc, _) = pl.columns(B_packed), pl.columns(alpha)
+    x_loc, rows = pl.rows_local(x, mesh)
+    y = kops.binary_matmul(x_loc, B_loc, a_loc, K=K, group_size=K // a_loc.shape[1],
+                           m_active=m_active)
+    return pl.columns_out(y, mesh, rows, tuple(x.shape[:-1]) + (B_packed.shape[-1],))

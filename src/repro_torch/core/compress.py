@@ -5,9 +5,10 @@ The paper's greedy multi-level binarization (Algorithm 1, steps 1-5, one
 alpha per tensor) applied to gradients: each leaf becomes M sign tensors
 and M scales (32/M x fewer bits on the wire), and the compression residual
 is kept locally ("error feedback", Karimireddy et al. 2019) so its bias
-vanishes over steps.  The port trains on one device, so the compressed
-gradient goes straight to the optimizer; an all-reduce of it waits for
-``distributed/`` (ROADMAP).
+vanishes over steps.  The compressed gradient goes straight to the
+optimizer on one device; the mesh train step (``launch/steps.py``) refuses
+compression, so its all-reduce of compressed gradients is not ported
+(ROADMAP).
 """
 from __future__ import annotations
 

@@ -7,10 +7,12 @@ through a ``file://`` store in a fresh temporary directory (no TCP port to
 collide with a neighbour), each running ``fn(rank, world, *args)``.  The
 ranks may share one card (``device="cuda:0"`` with ``backend="gloo"``) or
 run on the CPU.  Each rank takes an equal share of the host's cores as
-its intra-op threads.
+its intra-op threads.  Ranks on a card over gloo run ``fn`` inside
+``sharding.placement.gloo_gathers_through_host``.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import queue
@@ -21,6 +23,8 @@ import traceback
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from repro_torch.sharding import placement as pl
 
 
 def _rank_main(rank: int, world: int, init: str, backend: str, device: str,
@@ -34,8 +38,13 @@ def _rank_main(rank: int, world: int, init: str, backend: str, device: str,
             torch.cuda.set_device(dev.index or 0)
         dist.init_process_group(backend, init_method=init, rank=rank, world_size=world,
                                 timeout=datetime.timedelta(seconds=timeout_s))
+        # gloo's all-gather into one tensor crashes on card tensors (torch
+        # 2.11): ranks sharing a card stage DTensor's gathers through host
+        staged = (pl.gloo_gathers_through_host() if backend == "gloo" and dev.type == "cuda"
+                  else contextlib.nullcontext())
         try:
-            out = fn(rank, world, *args)
+            with staged:
+                out = fn(rank, world, *args)
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))

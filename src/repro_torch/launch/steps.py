@@ -1,8 +1,16 @@
-"""Train step builder for one device (port of ``repro/launch/steps.py``).
+"""Train and serve step builders, on one device or on a mesh (port of
+``repro/launch/steps.py``).
 
-    state   = init_train_state(cfg, optimizer)          # on the card
+    state   = init_train_state(cfg, optimizer)                 # on the card
     step_fn = build_train_step(cfg, optimizer, microbatch=4)
     state, metrics = step_fn(state, batch)
+
+    state   = init_train_state(cfg, optimizer, mesh=mesh)      # sharded
+    step_fn = build_train_step(cfg, optimizer, mesh=mesh)
+
+    serve = build_serve_step(cfg, mesh, kind="decode")
+    params = serve.shard_params(packed)
+    logits, cache = serve(params, serve.shard_batch({"tokens", "pos", "cache"}))
 
 The state is ``{params, opt_state, step}`` (+ ``grad_comp`` with binary
 gradient compression): params and moments on the device, ``step`` a 0-d
@@ -15,28 +23,68 @@ package discards a step's new state when its loss is not finite
 ``step_fn`` reads the loss on the host before it updates and, when it is not
 finite, leaves the state as it was and reports ``skipped`` in the metrics.
 
-No mesh: ``install_rules``, ``train_state_specs``, ``lower_train_step`` and
-``lower_serve_step`` wait for ``distributed/`` and the dry-run tooling
-(ROADMAP).
+On a mesh (a ``DeviceMesh`` with axes ``data`` (and ``pod``) and
+``model``) the JAX package's shardings become DTensor placements: params and
+moments are DTensors placed by ``sharding/rules.param_pspecs`` (FSDP + TP),
+each batch is placed by ``batch_pspecs`` (rows over the data axes), the
+activations follow the logical-axis rules ``install_rules`` sets, the
+gradients land on their params' placements (a reduction over the data
+axes: the mean over the global batch), and the update runs on each rank's
+shard.  Every rank calls the step with the same global batch.  Left out on
+the mesh: ``grad_compress_M`` and the sequence-sharded (``seq_sharded``)
+rules.  The dry run's ``lower_train_step`` / ``lower_serve_step`` wait for
+the dry-run tooling (ROADMAP).
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import compress as gc
 from repro_torch.models import api
+from repro_torch.models import common as cm
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.optim import Optimizer
+from repro_torch.sharding import placement as pl
+from repro_torch.sharding import rules as shr
+
+
+def install_rules(cfg: ArchConfig, mesh, *, seq_sharded: bool = False) -> None:
+    cm.set_axis_rules(shr.activation_rules(mesh, seq_sharded=seq_sharded),
+                      shr.axis_sizes(mesh))
+
+
+def train_state_specs(cfg: ArchConfig, mesh, optimizer: Optimizer) -> dict:
+    """PartitionSpec tree for {params, opt_state, step} (FSDP+TP); ``mesh``
+    a DeviceMesh or ``{axis: size}``."""
+    param_shapes = api.param_shapes(cfg)
+    pspecs = shr.param_pspecs(cfg, param_shapes, mesh)
+    # optimizer state mirrors the param tree per moment buffer
+    return {"params": pspecs, "opt_state": {k: pspecs for k in optimizer.init(param_shapes)},
+            "step": shr.P()}
+
+
+def train_state_shardings(cfg: ArchConfig, mesh, optimizer: Optimizer) -> dict:
+    """The ``NamedSharding`` of every param and moment, None for the host
+    ``step``: what ``CheckpointManager.restore(shardings=)`` and
+    ``Trainer(state_shardings=)`` take."""
+    specs = train_state_specs(cfg, mesh, optimizer)
+    return {"params": shr.param_placements(specs["params"], mesh),
+            "opt_state": shr.param_placements(specs["opt_state"], mesh), "step": None}
 
 
 def init_train_state(cfg: ArchConfig, optimizer: Optimizer, *, seed: int = 0,
-                     device="cuda") -> dict:
+                     device="cuda", mesh=None) -> dict:
     """Params drawn from a generator on ``device`` seeded with ``seed``,
-    zero moments, step 0."""
+    zero moments, step 0.  With ``mesh`` every rank draws the same params
+    and keeps its shards; the moments are made on those shards."""
     dev = resolve_device(device)
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    if mesh is not None:
+        params = shr.distribute_params(params, train_state_specs(cfg, mesh, optimizer)["params"],
+                                       mesh)
     return {"params": params, "opt_state": optimizer.init(params),
             "step": torch.zeros((), dtype=torch.int32)}
 
@@ -55,26 +103,48 @@ def loss_and_grads(fn, params, *args):
     return tree_map(lambda p: by_id[id(p)], live), {k: v.detach() for k, v in metrics.items()}
 
 
+def shard_batch(cfg: ArchConfig, batch: dict, mesh) -> dict:
+    """A global batch (the same on every rank) placed by ``batch_pspecs``."""
+    return shr.distribute_params(batch, shr.batch_pspecs(cfg, batch, mesh), mesh)
+
+
 def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
-                     microbatch: int | None = None, grad_compress_M: int = 0):
+                     microbatch: int | None = None, grad_compress_M: int = 0, mesh=None):
     """Returns ``step_fn(state, batch) -> (state, metrics)``, the state
     updated in place.  ``microbatch`` > 1 splits the batch's rows into that
-    many slices and averages their fp32 gradients and metrics."""
+    many slices and averages their fp32 gradients and metrics.  With
+    ``mesh`` the state is ``init_train_state(..., mesh=mesh)``'s and the
+    batch the global one."""
+    if mesh is not None and grad_compress_M:
+        raise NotImplementedError("binary gradient compression on a mesh is not ported")
 
     def loss_fn(params, batch):
         return api.loss_fn(cfg, params, batch)
 
+    def one(params, batch):
+        if mesh is None:
+            return loss_and_grads(loss_fn, params, batch)
+        # forward and backward over DTensors (the plain tensors the model
+        # makes, masks and positions, join as replicated); each gradient
+        # moved to its param's placements, the metrics gathered whole
+        install_rules(cfg, mesh)
+        with implicit_replication():
+            grads, metrics = loss_and_grads(loss_fn, params, shard_batch(cfg, batch, mesh))
+            grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                             if pl.is_dtensor(p) else g, grads, params)
+        return grads, {k: pl.full(v) for k, v in metrics.items()}
+
     def grads_of(params, batch):
         if not microbatch or microbatch <= 1:
-            return loss_and_grads(loss_fn, params, batch)
+            return one(params, batch)
         B = batch["tokens"].shape[0]
         if B % microbatch:
             raise ValueError(f"batch {B} does not split into {microbatch} microbatches")
         mb = B // microbatch
         acc = met = None
         for i in range(microbatch):
-            g, m = loss_and_grads(loss_fn, params, {k: v[i * mb:(i + 1) * mb]
-                                                    for k, v in batch.items()})
+            part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            g, m = one(params, part)
             if acc is None:
                 acc, met = tree_map(lambda t: t.to(torch.float32), g), m
             else:
@@ -95,3 +165,49 @@ def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
         return state, dict(metrics, skipped=False)
 
     return step_fn
+
+
+# ---------------------------------------------------------------------------
+# serve
+# ---------------------------------------------------------------------------
+
+class ServeStep:
+    """One decode or prefill step of ``cfg`` on ``mesh``: what the JAX
+    package's ``lower_serve_step`` lowers, run eagerly over DTensors.
+
+    ``shard_params`` places a params tree (the packed tree when
+    ``cfg.quant.mode == "binary"``) by ``param_pspecs``, FSDP over the data
+    axes or, with ``fsdp_params=False``, TP-only; ``shard_batch`` places
+    ``{tokens, pos, cache}`` (decode) or ``{tokens}`` (prefill) by
+    ``batch_pspecs``.  Calling it runs ``api.decode_step`` -> (logits,
+    cache), the cache written in place on each rank's shard, or
+    ``api.forward`` -> logits; the logits are a DTensor split on
+    ``"vocab"``.  Every binary linear runs the kernel on the rank's column
+    shard (``core/binlinear.py``)."""
+
+    def __init__(self, cfg: ArchConfig, mesh, kind: str, fsdp_params: bool):
+        if kind not in ("decode", "prefill"):
+            raise ValueError(f"unknown serve step kind {kind!r}")
+        self.cfg, self.mesh, self.kind, self.fsdp_params = cfg, mesh, kind, fsdp_params
+
+    def shard_params(self, params):
+        specs = shr.param_pspecs(self.cfg, params, self.mesh, fsdp=self.fsdp_params)
+        return shr.distribute_params(params, specs, self.mesh)
+
+    def shard_batch(self, batch: dict) -> dict:
+        return shard_batch(self.cfg, batch, self.mesh)
+
+    @torch.no_grad()
+    def __call__(self, params, batch):
+        install_rules(self.cfg, self.mesh)
+        with implicit_replication():
+            if self.kind == "decode":
+                return api.decode_step(self.cfg, params, batch)
+            return api.forward(self.cfg, params, batch)[0]
+
+
+def build_serve_step(cfg: ArchConfig, mesh, *, kind: str = "decode",
+                     fsdp_params: bool | None = None) -> ServeStep:
+    """The serve step of ``cfg`` on ``mesh``; ``fsdp_params`` defaults to
+    ``cfg.serve_fsdp``."""
+    return ServeStep(cfg, mesh, kind, cfg.serve_fsdp if fsdp_params is None else fsdp_params)

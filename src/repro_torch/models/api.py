@@ -10,6 +10,7 @@ The surface the serving runtime, tests and ``chip_smoke.py`` use:
   prefill(cfg, params, tokens, max_len)  -> (logits, cache)
   scatter_cache(cfg, cache, slot, part)  -> cache
   binarize_model_params(cfg, params)     -> packed deployment tree
+  param_shapes(cfg, qc=None)             -> the fp (or packed) tree as meta tensors
   count_params(cfg, active_only=False)   -> int
 
 The families: dense and MoE (MLA, leading dense layers, MTP), SSM (a
@@ -256,15 +257,10 @@ BINARIZE_EXCLUDE = ("router", "embed", "unembed", "conv_", "A_log",
                     "dt_bias", "norm", "wuk", "wuv")
 
 
-def binarize_model_params(cfg: ArchConfig, params, *, qc=None):
-    """Convert every eligible linear's fp weights to packed-binary form.
-
-    Eligible = dict leaves holding a 2D 'w' under a path not excluded in
-    BINARIZE_EXCLUDE.  Stacked-layer weights ([L, K, N]) are binarized layer
-    by layer and stacked, as the JAX package's vmap does.
-    """
-    qc = qc or cfg.quant
-
+def _map_linears(params, one):
+    """``one({'w', 'b'?})`` on every eligible linear: dict leaves holding a
+    2D 'w' under a path not excluded in BINARIZE_EXCLUDE; a stacked-layer
+    weight ([L, K, N]) layer by layer, the results stacked."""
     def convert(path, subtree):
         if not isinstance(subtree, dict):
             return subtree
@@ -272,15 +268,38 @@ def binarize_model_params(cfg: ArchConfig, params, *, qc=None):
         w = subtree.get("w")
         if isinstance(w, torch.Tensor) and not any(e in pstr for e in BINARIZE_EXCLUDE):
             if w.ndim == 2:
-                return bl.binarize_params(subtree, qc)
+                return one(subtree)
             if w.ndim == 3:
-                stacked = cm.stack_trees([bl.binarize_params({"w": wi}, qc) for wi in w])
+                stacked = cm.stack_trees([one({"w": wi}) for wi in w])
                 if "b" in subtree:
                     stacked["b"] = subtree["b"]
                 return stacked
         return {k: convert(path + (k,), v) for k, v in subtree.items()}
 
     return convert((), params)
+
+
+def binarize_model_params(cfg: ArchConfig, params, *, qc=None):
+    """Convert every eligible linear's fp weights to packed-binary form
+    (stacked weights layer by layer, as the JAX package's vmap does)."""
+    qc = qc or cfg.quant
+    return _map_linears(params, lambda sub: bl.binarize_params(sub, qc))
+
+
+def param_shapes(cfg: ArchConfig, *, qc=None):
+    """The params tree of ``init_params(cfg)`` as ``meta`` tensors (shape
+    and dtype, no storage): the port's ``jax.eval_shape(init_params)``.
+    With a binary ``qc``, the tree ``binarize_model_params(cfg, params,
+    qc=qc)`` gives, from ``binlinear.packed_shapes`` (Algorithm 2's early
+    exit reads data, so it cannot run on shapes)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = init_params(cfg, torch.Generator(), device="cpu")
+    shapes = cm.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)
+    if qc is not None and qc.mode == "binary":
+        shapes = _map_linears(shapes, lambda sub: bl.packed_shapes(sub, qc))
+    return shapes
 
 
 def _attn_params(cfg: ArchConfig) -> int:

@@ -12,7 +12,9 @@ Decode uses an explicit KV cache:
 The scores run in plain torch ops with fp32 accumulation, as the JAX
 package's ``_gqa_scores`` does (no Pallas kernel there).  ``attn_decode``
 and ``mla_decode`` write the new token's rows into the cache tensors in
-place (JAX returns updated copies); the prefills build a fresh cache.
+place (JAX returns updated copies; on a DTensor cache each rank writes its
+own shard, ``sharding/placement.write_rows``); the prefills build a fresh
+cache.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common as cm
+from repro_torch.sharding import placement as pl
 
 NEG_INF = -1e30
 
@@ -93,9 +96,12 @@ def _gqa_out(weights, v):
 
 def _attend(q, k, v, valid) -> torch.Tensor:
     """Softmax attention of q over k/v where ``valid`` (broadcast against
-    [B, H, Sq, Sk]) is True."""
+    [B, H, Sq, Sk]) is True.  Over DTensors the operands, and the output's
+    gradient, are made whole on every rank but their batch rows
+    (``placement.whole_rows``, ``placement.grads_as``)."""
+    q, k, v = pl.whole_rows(q), pl.whole_rows(k), pl.whole_rows(v)
     logits = _gqa_scores(q, k).masked_fill(~valid, NEG_INF)
-    return _gqa_out(torch.softmax(logits, dim=-1), v)
+    return pl.grads_as(_gqa_out(torch.softmax(logits, dim=-1), v))
 
 
 def attn_forward(params, x, cfg: ArchConfig, *, positions=None, mask=None):
@@ -108,6 +114,9 @@ def attn_forward(params, x, cfg: ArchConfig, *, positions=None, mask=None):
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions)
+    q = cm.shard(q, "batch", None, "heads", None)
+    k = cm.shard(k, "batch", None, "kv_heads", None)
+    v = cm.shard(v, "batch", None, "kv_heads", None)
     if mask is None:
         mask = cm.causal_mask(S, cfg.sliding_window, device=x.device)
     c = cfg.attn_chunk
@@ -194,16 +203,14 @@ def attn_prefill(params, x, cfg: ArchConfig, *, max_len: int, positions=None, ma
 def attn_decode(params, x, cfg: ArchConfig, cache: dict, pos: torch.Tensor):
     """One-token decode.  x: [B, 1, D], pos: [B] int -> (y, cache), the
     cache's rows at each slot's position written in place."""
-    B = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg, pos[:, None])
     W = cache["k"].shape[1]
     slot = (pos % W) if cfg.sliding_window else pos
-    bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    pl.write_rows(cache["k"], slot, k[:, 0])
+    pl.write_rows(cache["v"], slot, v[:, 0])
     if cfg.sliding_window:
         slot_pos = cache["slot_pos"]
-        slot_pos[bidx, slot] = pos.to(torch.int32)
+        pl.write_rows(slot_pos, slot, pos.to(torch.int32))
         p = pos[:, None]
         valid = (slot_pos >= 0) & (slot_pos <= p) & (p - slot_pos < cfg.sliding_window)
     else:
@@ -325,10 +332,9 @@ def mla_decode(params, x, cfg: ArchConfig, cache: dict, pos: torch.Tensor):
     f32 = torch.float32
     q_nope, q_rope = _mla_queries(params, x, cfg, pos[:, None])     # [B,1,H,*]
     c_new, k_rope_new = _mla_latents(params, x, cfg, pos[:, None])
-    bidx = torch.arange(B, device=x.device)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    c_kv[bidx, pos] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[bidx, pos] = k_rope_new[:, 0].to(k_rope.dtype)
+    pl.write_rows(c_kv, pos, c_new[:, 0])
+    pl.write_rows(k_rope, pos, k_rope_new[:, 0])
     # absorb W_uk into the query:  q_lat[b,h,rank] = q_nope · W_uk[rank, h, qk]
     wuk = params["wuk"]["w"].to(f32).reshape(rank, H, qk)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].to(f32), wuk)

@@ -5,8 +5,11 @@ Every weight-bearing matmul goes through ``core/binlinear.apply_linear``, so
 the paper's multi-level binary approximation is a config switch on every
 layer.  Param trees are nested dicts of tensors; ``tree_map``,
 ``tree_index`` and ``stack_trees`` stand in for ``jax.tree.map`` over them.
-The JAX package's mesh constraints (``set_axis_rules``, ``shard``) wait for
-``distributed/`` (ROADMAP item 10): the port's functions make no such call.
+Activation sharding uses *logical* axis names resolved against rules
+installed by the launcher (``set_axis_rules``, from ``launch/steps.py``'s
+``install_rules``); ``shard`` then moves a DTensor activation to the
+placements the rules give, and is a no-op on a plain tensor or without
+rules, as the JAX package's is on one device.
 
 Weights are drawn from a ``torch.Generator`` on the generator's own device
 and then moved to ``device``: a CPU generator gives the same weights on
@@ -16,10 +19,63 @@ no card.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.core import binlinear as bl
+from repro_torch.sharding import placement as pl
+from repro_torch.sharding.rules import PartitionSpec
+
+_STATE = threading.local()
+
+
+def set_axis_rules(rules: dict | None, axis_sizes: dict[str, int] | None = None) -> None:
+    """Install logical->mesh axis rules (e.g. {'batch': ('pod', 'data')}).
+    axis_sizes enables divisibility checks (a constraint that doesn't divide
+    the dim is dropped rather than failing)."""
+    _STATE.rules = rules
+    _STATE.axis_sizes = axis_sizes or {}
+
+
+def get_axis_rules():
+    return getattr(_STATE, "rules", None)
+
+
+def _axes_size(axes, sizes: dict[str, int]) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        return sizes.get(axes, 1)
+    n = 1
+    for a in axes:
+        n *= sizes.get(a, 1)
+    return n
+
+
+def logical_spec(shape, logical, rules: dict, sizes: dict[str, int]) -> PartitionSpec:
+    """The PartitionSpec ``shard`` constrains to: each logical name resolved
+    through ``rules``, dropped where its axes do not divide the dim."""
+    spec = []
+    for i, name in enumerate(logical):
+        axes = rules.get(name) if name else None
+        if axes is not None and shape[i] % _axes_size(axes, sizes) != 0:
+            axes = None  # dim not divisible -> leave unconstrained
+        spec.append(axes)
+    return PartitionSpec(*spec)
+
+
+def shard(x: torch.Tensor, *logical: str | None) -> torch.Tensor:
+    """``with_sharding_constraint`` by logical axis names: a DTensor is
+    redistributed to the spec's placements (a dim named by no rule is
+    replicated); no-op without rules or on a plain tensor."""
+    rules = get_axis_rules()
+    if rules is None or not pl.is_dtensor(x):
+        return x
+    spec = logical_spec(x.shape, logical, rules, getattr(_STATE, "axis_sizes", {}))
+    return x.redistribute(x.device_mesh, pl.spec_placements(spec, x.device_mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +197,12 @@ def init_embedding(gen: torch.Generator, vocab: int, dim: int, dtype,
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    """``table[tokens]``; over a DTensor table, the vocab-parallel lookup
+    of ``sharding/placement.embedding``."""
+    table = params["table"]
+    if pl.is_dtensor(table):
+        return pl.embedding(tokens, table)
+    return F.embedding(tokens, table)
 
 
 def unembed(params, x: torch.Tensor) -> torch.Tensor:

@@ -37,4 +37,5 @@ def ffn_forward(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         h = act(cm.linear(params["w_gate"], x, q)) * cm.linear(params["w_up"], x, q)
     else:
         h = _gelu(cm.linear(params["w_up"], x, q))
+    h = cm.shard(h, "batch", None, "ff")
     return cm.linear(params["w_down"], h, q)

@@ -14,8 +14,8 @@ tensors, not ``{w}`` linears: ``binarize_model_params`` passes over them
 and their products are plain ``einsum``s (fake-quant runs Algorithm 2 per
 expert, as the JAX package's ``vmap`` does).  The shared expert is an
 ``ffn`` of ``{w}`` linears and so goes on the binary matmul kernel.  The
-JAX package's expert-parallel ``shard`` constraints wait for
-``distributed/`` (ROADMAP item 3).
+expert inputs and hidden states carry the JAX package's expert-parallel
+``shard`` constraints (``"experts"`` on ``"model"``), which act on a mesh.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import binarize as bz
+from repro_torch.models import common as cm
 from repro_torch.models import ffn as ffn_mod
 
 
@@ -111,10 +112,12 @@ def moe_ffn(params, x: torch.Tensor, cfg: ArchConfig):
     x_pad = torch.cat([xg, xg.new_zeros((G, 1, D))], dim=1)
     gidx = torch.arange(G, device=x.device)
     expert_in = x_pad[gidx[:, None, None], dispatch]                # [G, E, C, D]
+    expert_in = cm.shard(expert_in, "batch", "experts", None, None)
     # --- expert computation (grouped products) ---
     w_gate, w_up, w_down = _expert_weights(params, cfg, x.dtype)
     h = F.silu(torch.einsum("gecd,edf->gecf", expert_in, w_gate)) \
         * torch.einsum("gecd,edf->gecf", expert_in, w_up)
+    h = cm.shard(h, "batch", "experts", None, None)
     expert_out = torch.einsum("gecf,efd->gecd", h, w_down)         # [G, E, C, D]
     # --- combine ---
     ok = slot >= 0

@@ -64,6 +64,7 @@ def _ffn_block(params, x, cfg: ArchConfig):
 def layer_forward(params, x, cfg: ArchConfig, *, positions=None, mask=None):
     """-> (x, aux): aux holds a MoE layer's load-balance loss and dropped
     fraction, and is empty for a dense layer."""
+    x = cm.shard(x, "batch", "seq", None)
     h = cm.rms_norm(params["ln1"], x, cfg.norm_eps)
     fwd = attn.mla_forward if cfg.use_mla else attn.attn_forward
     return _ffn_block(params, x + fwd(params["attn"], h, cfg, positions=positions,
@@ -167,7 +168,8 @@ def lm_hidden(params, cfg: ArchConfig, tokens, *, prefix_embeds=None):
 
 def lm_logits(params, cfg: ArchConfig, hidden):
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return cm.softcap(cm.unembed(table, hidden), cfg.logit_softcap)
+    logits = cm.shard(cm.unembed(table, hidden), "batch", None, "vocab")
+    return cm.softcap(logits, cfg.logit_softcap)
 
 
 def lm_forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None):

@@ -12,7 +12,10 @@ trees, ``update`` writes params and moments in place under ``no_grad``: a
 functional update of a multi-GB model briefly holds two copies of params and
 moments.  Each leaf is updated in pieces of at most ``PIECE`` elements (views
 along its first dim), which bounds the fp32 scratch of one update to a few
-pieces whatever the leaf's size.
+pieces whatever the leaf's size.  DTensor params (a mesh,
+``launch/steps.py``) are updated shard by shard: params, gradients and
+moments share their placements, so the update, elementwise, runs on each
+rank's local shards, and only the gradient norm is summed across ranks.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.sharding import placement as pl
 
 PIECE = 1 << 24
 
@@ -30,16 +34,21 @@ class Optimizer(NamedTuple):
     update: Callable  # (grads, state, params, step) -> (params, state), in place
 
 
+def _split(*leaves):
+    """Same-shaped tensors, each cut along its first dim into views of at
+    most ``PIECE`` elements, zipped."""
+    lead = leaves[0]
+    if lead.ndim == 0 or lead.numel() <= PIECE:
+        return [leaves]
+    rows = max(1, PIECE // (lead.numel() // lead.shape[0]))
+    return list(zip(*(t.split(rows) for t in leaves)))
+
+
 def _pieces(*trees):
-    """The leaves of same-structured trees, zipped, each cut along its first
-    dim into views of at most ``PIECE`` elements."""
+    """The leaves of same-structured trees (a DTensor's local shard), zipped,
+    each cut into views of at most ``PIECE`` elements."""
     for leaves in zip(*(tree_leaves(t) for t in trees)):
-        lead = leaves[0]
-        if lead.ndim == 0 or lead.numel() <= PIECE:
-            yield leaves
-            continue
-        rows = max(1, PIECE // (lead.numel() // lead.shape[0]))
-        yield from zip(*(t.split(rows) for t in leaves))
+        yield from _split(*(pl.local(t) for t in leaves))
 
 
 def _f32_scalar(x) -> float:
@@ -63,17 +72,20 @@ def clip_by_global_norm(grads, max_norm: float):
     """Scale ``grads`` in place by min(1, max_norm / (||grads|| + 1e-9));
     returns ``(grads, global norm)``, the norm a 0-d fp32 tensor on the
     grads' device (no host sync)."""
-    sq = sum(torch.sum(g.to(torch.float32) ** 2) for (g,) in _pieces(grads))
+    sq = sum(pl.sum_over_shards(sum(torch.sum(p.to(torch.float32) ** 2)
+                                    for (p,) in _split(pl.local(g))), g)
+             for g in tree_leaves(grads))
     gnorm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     for g in tree_leaves(grads):
-        g.mul_(scale.to(g.dtype))
+        pl.local(g).mul_(scale.to(g.dtype))
     return grads, gnorm
 
 
 def _zeros32(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                    params)
+    """fp32 zeros like each param (on a DTensor param's placements)."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                               memory_format=torch.contiguous_format), params)
 
 
 def adamw(lr: float | Callable, *, b1: float = 0.9, b2: float = 0.999,

@@ -9,13 +9,15 @@
   * straggler watchdog: a step slower than ``straggler_factor`` times the
     EWMA of earlier steps is recorded (the first step, which builds what it
     needs, stays out of the EWMA);
+  * elastic re-mesh: with ``state_shardings`` (``launch/steps.
+    train_state_shardings`` of the mesh it runs on), ``maybe_resume``
+    restores onto that mesh whatever mesh saved the checkpoint
+    (reshard-on-restore, ``checkpoint/manager.py``).  On a mesh every rank
+    runs the trainer: the saves are collectives and rank 0 writes;
   * NaN/inf guard: a step whose loss is not finite is counted in
     ``nan_skips`` and its update skipped.  The port updates in place, so
     ``step_fn`` must decide before it updates (``launch/steps.py``'s does);
     the trainer keeps whatever state ``step_fn`` returns.
-
-The JAX package's elastic re-mesh (``restore``'s shardings) waits for
-``distributed/`` (ROADMAP).
 """
 from __future__ import annotations
 
@@ -51,20 +53,23 @@ class TrainerReport:
 
 
 class Trainer:
-    def __init__(self, step_fn: Callable, state: Any, data, tcfg: TrainerConfig):
+    def __init__(self, step_fn: Callable, state: Any, data, tcfg: TrainerConfig, *,
+                 state_shardings=None):
         self.step_fn = step_fn
         self.state = state
         self.data = data
         self.tcfg = tcfg
         self.ckpt = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
         self.report = TrainerReport()
+        self.state_shardings = state_shardings
 
     # ------------------------------------------------------------ resume --
     def maybe_resume(self) -> bool:
         latest = self.ckpt.latest_step()
         if latest is None:
             return False
-        self.state, extra = self.ckpt.restore(latest, self.state)
+        self.state, extra = self.ckpt.restore(latest, self.state,
+                                              shardings=self.state_shardings)
         if "data_state" in extra and hasattr(self.data, "load_state_dict"):
             self.data.load_state_dict(extra["data_state"])
         self.report.resumed_from = latest
