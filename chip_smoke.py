@@ -197,19 +197,32 @@ source, all at once) and runs, each phase failing loudly:
      packed gemma-2b (phase 7's build, fp32, M=2) saved to a temporary
      checkpoint and restored by ranks spawned with ``run_local`` on the one
      card (gloo), whose ``build_serve_step`` decode steps at 8 slots
-     (2x1 and 2x2 FSDP and TP-only, 1x2 once: with one data rank the two
-     are the same layout; bf16 at 2x2) hold every binary
+     (2x2 and 2x1 FSDP and TP-only, 1x2 once: with one data rank the two
+     are the same layout; bf16 at 2x2 in both) hold every binary
      linear's columns ``torch.equal`` to the single-process kernel's, the
      logits within rtol 1e-4 / atol 1e-4·max|logit| (bf16: 2e-2) of
      single-process ``decode_step`` and 126 matmul launches per rank per
      step, plus a 1x2 prefill of 2 x 64 tokens; (c) gemma-2b cut to 2
      layers, fp32: a dense mesh train step at 2x1 and at 1x2 with each
-     leaf's update within 1e-3 of single-process's, two fake-quant mesh
-     steps at 2x1 and 1x2 against single-process, a Trainer saving at 2x1
-     and resuming at 1x2 with the state ``torch.equal``; (d) a GPipe
-     pipeline of 2 full-width packed
-     layers against ``reference_apply``.  Times are rank 0's beside the
-     single-process step: no scaling claim.  Numbers under ``"mesh_lm"``.
+     leaf's update within 1e-3 of single-process's; fake-quant: a
+     ``Trainer``'s step at 2x1 that then saves, and a ``Trainer`` at 1x2
+     that resumes from that save (``restore(shardings=)``: params and
+     momenta ``torch.equal``) and takes the second step, each held against
+     single-process; (d) a
+     GPipe pipeline of 2 full-width packed layers against
+     ``reference_apply``.  Times are rank 0's beside the single-process
+     step: no scaling claim.  Numbers under ``"mesh_lm"``;
+ 15. the dry run (``launch/{cost_analysis,steps,dryrun,hillclimb}.py``):
+     (a) ``python -m repro_torch.launch.dryrun`` on gemma-2b decode_32k
+     over a cuda-typed fake process group of 256 ranks, dense and as
+     hillclimb cell D's ``tponly_binM2`` (two subprocesses with a timeout,
+     run on the host beside phase 14's ranks):
+     both records ok, the packed one counting 126 ``binary_matmul`` calls
+     per device, model_flops 2 · N_active · 128; (b) on phase 14b's packed
+     gemma-2b, one decode group step at 8 slots under ``CostCounter``: the
+     logits ``torch.equal`` to the step without it, the counted calls equal
+     to the launch counter's delta, the counted kernel MACs and bytes equal
+     to phase 7's per-call bound inputs.  Numbers under ``"dryrun"``.
 
 Weights are random, drawn from a seeded generator.  The logits of phases 2
 and 3 are compared with rtol 1e-4 and atol 1e-4·max|logit| (a relative
@@ -217,18 +230,18 @@ floor: the reference's random MobileNet init shrinks activations to ~1e-13
 by the head, and 28 layers of fp32 sums run in another order on each side).
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` counts the main
-paths of phases 2, 3, 7, 8a, 9a, 9c, 10, 11, 12, 13 and 14, ``cnn_launches`` phases 2-3,
+paths of phases 2, 3, 7, 8a, 9a, 9c, 10, 11, 12, 13, 14 and 15b, ``cnn_launches`` phases 2-3,
 ``serve_launches`` phase 6, ``lm_launches`` phase 7's serving,
 ``train_launches`` phase 8a's execute, ``fuzz_launches`` phase 9a's
 ``execute`` calls, ``soak_launches`` phase 9c's soaks, ``moe_launches``
 phase 10's serving, ``ssm_launches`` phase 11's, ``encdec_launches``
-phase 12's, ``mesh_launches`` phase 13's ranks and ``mesh_lm_launches``
-phase 14's), nvidia-smi's line,
+phase 12's, ``mesh_launches`` phase 13's ranks, ``mesh_lm_launches``
+phase 14's and ``dryrun_launches`` phase 15b's), nvidia-smi's line,
 and last ``{"ok": true, "device": {...}}``; per-instruction numbers go to
 ``chiprun_out/chip_smoke.json``, phase 7's under ``"lm"``, phase 8's under
 ``"train"``, phase 9's under ``"verify"``, phase 10's under ``"moe"``,
 phase 11's under ``"ssm"``, phase 12's under ``"encdec"``, phase 13's under
-``"mesh"``, phase 14's under ``"mesh_lm"``.  Exits non-zero,
+``"mesh"``, phase 14's under ``"mesh_lm"``, phase 15's under ``"dryrun"``.  Exits non-zero,
 printing no result, without
 a card or without the repository's ``src/`` beside it.
 """
@@ -3192,16 +3205,23 @@ def mesh_phase(programs: dict, dev, out_dir: Path, smi: str) -> dict:
 
 MESH_LM_STATIC = {"2x1": {"data": 2, "model": 1}, "1x2": {"data": 1, "model": 2},
                   "2x2": {"data": 2, "model": 2}, "16x16": {"data": 16, "model": 16}}
-MESH_LM_RUNS = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}    # world size -> its decode meshes
+# world size -> its decode meshes, each with its layouts (FSDP or not; with
+# one data rank FSDP splits nothing: 1x2 runs once)
+MESH_LM_RUNS = {2: (((2, 1), (True, False)), ((1, 2), (True,))),
+                4: (((2, 2), (True, False)),)}
 MESH_LM_SLOTS, MESH_LM_LEN = 8, 128
 MESH_LM_POS = (5, 17, 30, 64, 90, 100, 120, 127)      # each slot's position
 MESH_LM_PREFILL = (2, 64)                             # rows x tokens, at 1x2
-MESH_LM_TIMED = 2
+MESH_LM_TIMED = 1        # an FSDP step gathers the 1 GB fp32 table through the host: ~5 s
+# (mesh, dtype, FSDP) cases held but not timed: their FSDP gathers through the
+# host repeat those of the timed fp32 2x2 FSDP case
+MESH_LM_UNTIMED = {((2, 1), "float32", True), ((2, 2), "bfloat16", True)}
 MESH_LM_LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
                    ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down"))  # call order
 MESH_LM_BF16_RTOL = 2e-2          # tests/test_torch_mesh_lm.py's bf16 tolerance
 MESH_TRAIN_DEPTH, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_LR = 2, 8, 64, 0.5
 MESH_TRAIN_TOL = (1e-4, 1e-2)   # loss rtol, fake-quant update's L2 rtol over the whole tree
+MESH_TRAIN_STEPS = 1            # the 2x1 Trainer's fake-quant steps before its save
 MESH_TRAIN_DENSE_TOL = 1e-3     # each leaf's update against its own L2 (dense: no sign flips)
 MESH_PIPE_X, MESH_PIPE_MICRO = (8, 64, 2048), 4
 MESH_LM_PER_STEP = len(MESH_LM_LINEARS) * 18          # gemma-2b's binary linears per pass
@@ -3337,7 +3357,9 @@ def gathered_weight_bytes(cfg, full, mesh_shape, fsdp: bool) -> int:
 def decode_case(cfg, full, mesh, shape, fsdp: bool, dev, rtol: float = 1e-4) -> dict:
     """One decode step of ``cfg`` on ``mesh``: launches, the linears against
     the single-process kernel, the logits against single-process
-    ``api.decode_step`` in this process, then MESH_LM_TIMED timed steps."""
+    ``api.decode_step`` in this process, then MESH_LM_TIMED timed steps
+    (none for a case of MESH_LM_UNTIMED)."""
+    t0 = time.time()
     where = f"{shape[0]}x{shape[1]} {cfg.dtype} fsdp={fsdp}"
     step = train_steps.build_serve_step(cfg, mesh, fsdp_params=fsdp)
     params = step.shard_params(full)
@@ -3354,7 +3376,7 @@ def decode_case(cfg, full, mesh, shape, fsdp: bool, dev, rtol: float = 1e-4) -> 
     err = close_to(f"mesh LM decode {where}: logits vs single-process",
                    logits.full_tensor(), want, rtol)
     times = []
-    for _ in range(MESH_LM_TIMED):
+    for _ in range(0 if (shape, cfg.dtype, fsdp) in MESH_LM_UNTIMED else MESH_LM_TIMED):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         _, n = counted_step(lambda: step(params, batch))
@@ -3366,8 +3388,9 @@ def decode_case(cfg, full, mesh, shape, fsdp: bool, dev, rtol: float = 1e-4) -> 
         raise RuntimeError(f"mesh LM decode {where}: launches per step {launches}, "
                            f"want {MESH_LM_PER_STEP}")
     return {"launches": sum(launches), "linears_equal": checked, "logit_err": err,
-            "step_ms": statistics.median(times),
-            "gathered_weight_bytes": gathered_weight_bytes(cfg, full, shape, fsdp)}
+            "step_ms": statistics.median(times) if times else None,
+            "gathered_weight_bytes": gathered_weight_bytes(cfg, full, shape, fsdp),
+            "seconds": time.time() - t0}
 
 
 def prefill_case(cfg, full, mesh, shape, dev) -> dict:
@@ -3424,16 +3447,17 @@ def train_case(dev, meshes: dict, ckpt_dir: str) -> dict:
     update follows the gradient).  Dense: one step at 2x1 and one at 1x2
     against one single-process step, each leaf's update within
     MESH_TRAIN_DENSE_TOL of its own L2 (a wrong gradient on any leaf, a
-    norm scale's too, shows; the whole tree's L2 would hide a small leaf).  Fake-quant
-    M=2: two mesh steps at 1x2, and a Trainer's two at 2x1 that then
-    saves, against two single-process steps within MESH_TRAIN_TOL
+    norm scale's too, shows; the whole tree's L2 would hide a small leaf).
+    Fake-quant M=2: a Trainer's MESH_TRAIN_STEPS step(s) at 2x1 that then
+    saves, against as many single-process steps within MESH_TRAIN_TOL
     (Algorithm 2 solves alpha over the rank's columns, and a residual
     within rounding of 0 takes another sign there, which moves W_hat by
     2·alpha; each leaf's worst ratio is reported); a Trainer at 1x2 that
     resumes from the save (restore(shardings=): params and momenta
     torch.equal to the saved ones), whose step function then runs one step
-    more (``Trainer.run`` would save again: 6.3 GB through one card's
-    gloo, which the CPU test covers)."""
+    more, held against a further single-process step the same way
+    (``Trainer.run`` would save again: 6.3 GB through one card's gloo,
+    which the CPU test covers)."""
     from repro_torch.optim import sgd
 
     cfg = mesh_train_config()
@@ -3447,17 +3471,22 @@ def train_case(dev, meshes: dict, ckpt_dir: str) -> dict:
     def trainer(mesh, total):
         return Trainer(train_steps.build_train_step(cfg, opt, mesh=mesh),
                        train_steps.init_train_state(cfg, opt, device=dev, mesh=mesh),
-                       data(), TrainerConfig(total_steps=total, checkpoint_every=2,
+                       data(), TrainerConfig(total_steps=total,
+                                             checkpoint_every=MESH_TRAIN_STEPS,
                                              checkpoint_dir=ckpt_dir, log_every=1000),
                        state_shardings=train_steps.train_state_shardings(cfg, mesh, opt))
 
     def run(c, mesh, n):
+        """n steps from the seeded init: the losses and the params after each
+        of the last two."""
         state = train_steps.init_train_state(c, opt, device=dev, mesh=mesh)
-        fn, src, losses = train_steps.build_train_step(c, opt, mesh=mesh), data(), []
-        for _ in range(n):
+        fn, src, losses, params = train_steps.build_train_step(c, opt, mesh=mesh), data(), [], []
+        for i in range(n):
             state, met = fn(state, src.next_batch())
             losses.append(float(met["loss"]))
-        return state, losses
+            if i >= n - 2:
+                params.append(cm.tree_map(torch.clone, state["params"]))
+        return params, losses
 
     def l2(x, y):
         return float(torch.linalg.vector_norm(pl.full(x) - y, dtype=torch.float64))
@@ -3474,68 +3503,72 @@ def train_case(dev, meshes: dict, ckpt_dir: str) -> dict:
     init = cm.tree_map(torch.clone, train_steps.init_train_state(cfg, opt, device=dev)["params"])
     out = {}
     t0 = time.time()
-    ref, ref_losses = run(dense, None, 1)
+    (ref,), ref_losses = run(dense, None, 1)
     out["dense"] = {"ref_losses": ref_losses}
     for shape in ((2, 1), (1, 2)):
-        state, losses = run(dense, meshes[shape], 1)
-        worst = worst_leaf(state["params"], ref["params"], init)
+        (params,), losses = run(dense, meshes[shape], 1)
+        worst = worst_leaf(params, ref, init)
         if not (np.allclose(losses, ref_losses, rtol=loss_rtol)
                 and worst <= MESH_TRAIN_DENSE_TOL):
             raise RuntimeError(f"mesh train dense {shape}: losses {losses} vs {ref_losses}; a "
                                f"leaf {worst:.3g} of its own update from single-process")
         out["dense"][f"{shape[0]}x{shape[1]}"] = {"losses": losses, "worst_leaf": worst}
-        del state
+        del params
     out["dense"]["seconds"] = time.time() - t0
-    ref, ref_losses = run(cfg, None, 2)
-    update = whole(ref["params"], init)
-    out.update(ref_losses=ref_losses, update_l2=update)
+    t0 = time.time()
+    (ref_saved, ref_next), ref_losses = run(cfg, None, MESH_TRAIN_STEPS + 1)
+    out.update(ref_losses=ref_losses, ref_s=time.time() - t0)
 
-    def check(shape, state, losses, seconds):
-        err = whole(state["params"], ref["params"])
-        if not (np.allclose(losses, ref_losses, rtol=loss_rtol) and err <= update_rtol * update):
-            raise RuntimeError(f"mesh train {shape}: losses {losses} vs {ref_losses}; params "
+    def check(shape, params, losses, ref, seconds):
+        n = len(losses)
+        update = whole(ref, init)
+        err = whole(params, ref)
+        if not (np.allclose(losses, ref_losses[:n], rtol=loss_rtol)
+                and err <= update_rtol * update):
+            raise RuntimeError(f"mesh train {shape}: losses {losses} vs {ref_losses[:n]}; params "
                                f"{err:.3g} (L2) from single-process, the update's L2 "
                                f"{update:.3g}")
         out[f"{shape[0]}x{shape[1]}"] = {
-            "losses": losses, "param_err_over_update": err / update,
-            "worst_leaf": worst_leaf(state["params"], ref["params"], init), "seconds": seconds}
+            "steps": n, "losses": losses, "update_l2": update,
+            "param_err_over_update": err / update,
+            "worst_leaf": worst_leaf(params, ref, init), "seconds": seconds}
 
     t0 = time.time()
-    state, losses = run(cfg, meshes[(1, 2)], 2)
-    check((1, 2), state, losses, time.time() - t0)
-    del state
-    t0 = time.time()
-    first = trainer(meshes[(2, 1)], 2)
+    first = trainer(meshes[(2, 1)], MESH_TRAIN_STEPS)
     report = first.run()
     out["save_s"] = time.time() - t0
-    check((2, 1), first.state, report.losses, out["save_s"])
-    del ref, init
+    # gathered once: each gather of the state goes through the host (gloo)
     saved = {k: cm.tree_map(pl.full, first.state[k]) for k in ("params", "opt_state")}
-    del first
+    check((2, 1), saved["params"], report.losses, ref_saved, out["save_s"])
+    del first, ref_saved
     t0 = time.time()
-    second = trainer(meshes[(1, 2)], 3)
-    if not second.maybe_resume() or second.report.resumed_from != 2:
-        raise RuntimeError("mesh train: the 1x2 Trainer did not resume from step 2")
+    second = trainer(meshes[(1, 2)], MESH_TRAIN_STEPS + 1)
+    if not second.maybe_resume() or second.report.resumed_from != MESH_TRAIN_STEPS:
+        raise RuntimeError(f"mesh train: the 1x2 Trainer did not resume from step "
+                           f"{MESH_TRAIN_STEPS}")
     for a, b in zip(cm.tree_leaves(saved), cm.tree_leaves(
             {k: second.state[k] for k in ("params", "opt_state")})):
-        if tuple(b.device_mesh.shape) != (1, 2) or not torch.equal(a, pl.full(b)):
+        # the rank's shard against the same shard of the saved state
+        if tuple(b.device_mesh.shape) != (1, 2) or not torch.equal(
+                pl.place(a, b.device_mesh, b.placements).to_local(), b.to_local()):
             raise RuntimeError("mesh train: the state restored onto 1x2 differs from the "
                                "state saved at 2x1")
     del saved
     out["restore_s"] = time.time() - t0
+    t0 = time.time()
     second.state, met = second.step_fn(second.state, second.data.next_batch())
-    out["resumed_loss"] = float(met["loss"])
-    if not math.isfinite(out["resumed_loss"]) or int(second.state["step"]) != 3:
-        raise RuntimeError(f"mesh train: the resumed step gave loss {out['resumed_loss']}, "
-                           f"step {int(second.state['step'])}")
+    if int(second.state["step"]) != MESH_TRAIN_STEPS + 1:
+        raise RuntimeError(f"mesh train: the resumed step ended at step "
+                           f"{int(second.state['step'])}")
+    check((1, 2), cm.tree_map(pl.full, second.state["params"]),
+          report.losses + [float(met["loss"])], ref_next, time.time() - t0)
     return out
 
 
 def mesh_lm_rank(rank: int, world: int, ckpt_dir: str, runs, device: str) -> dict:
     """One rank of 14b-d: the packed gemma-2b restored whole onto the card,
-    each mesh of ``runs``' decode steps (fp32, FSDP and TP-only where the
-    data axis splits; bf16 at 2x2), at world 2 the 1x2 prefill, the
-    pipeline and the train step."""
+    each mesh of ``runs``' decode steps (fp32 in its layouts; bf16 too at
+    2x2), at world 2 the 1x2 prefill, the pipeline and the train step."""
     import faulthandler
 
     from repro_torch.launch import mesh as lmesh
@@ -3546,20 +3579,21 @@ def mesh_lm_rank(rank: int, world: int, ckpt_dir: str, runs, device: str) -> dic
     cfg = lm_config()
     like = cm.tree_map(lambda t: torch.empty((), dtype=t.dtype, device=dev).expand(t.shape),
                        api.param_shapes(cfg, qc=cfg.quant))
+    t0 = time.time()
     full, _ = CheckpointManager(ckpt_dir, scrub=False).restore(0, like)
-    out = {"decode": {}, "launches": 0}
-    for shape in runs:
+    out = {"decode": {}, "launches": 0, "restore_s": time.time() - t0}
+    for shape, layouts in runs:
         mesh = lmesh.make_host_mesh(shape[1], device=dev)
-        # with one data rank, FSDP splits nothing: the same placements as TP-only
-        for fsdp in (True, False)[:1 + (shape[0] > 1)]:
+        for fsdp in layouts:
             r = decode_case(cfg, full, mesh, shape, fsdp, dev)
             out["decode"][(shape, "float32", fsdp)] = r
             out["launches"] += r["launches"]
         if shape == (2, 2):
             cfg16, full16 = bf16_tree(cfg, full)
-            r = decode_case(cfg16, full16, mesh, shape, True, dev, rtol=MESH_LM_BF16_RTOL)
-            out["decode"][(shape, "bfloat16", True)] = r
-            out["launches"] += r["launches"]
+            for fsdp in layouts:
+                r = decode_case(cfg16, full16, mesh, shape, fsdp, dev, rtol=MESH_LM_BF16_RTOL)
+                out["decode"][(shape, "bfloat16", fsdp)] = r
+                out["launches"] += r["launches"]
             del full16
         if shape == (1, 2):
             out["prefill"] = prefill_case(cfg, full, mesh, shape, dev)
@@ -3571,17 +3605,20 @@ def mesh_lm_rank(rank: int, world: int, ckpt_dir: str, runs, device: str) -> dic
         torch.cuda.empty_cache()
         meshes = {(2, 1): lmesh.make_host_mesh(1, device=dev),
                   (1, 2): lmesh.make_host_mesh(2, device=dev)}
+        t0 = time.time()
         out["train"] = train_case(dev, meshes, str(Path(ckpt_dir).parent / "train"))
+        out["train"]["seconds"] = time.time() - t0
     return out
 
 
-def mesh_lm_phase(dev, out_dir: Path, smi: str) -> dict:
+def mesh_lm_phase(dev, out_dir: Path, smi: str, after_timing) -> dict:
     """Phase 14: (a) the rules' specs and per-rank bytes; (b) the packed
     gemma-2b built (phase 7's build), saved, and restored by ranks spawned
     on the one card (gloo), whose sharded decode steps hold each linear
     ``torch.equal`` to the single-process kernel and the logits to
     single-process ``decode_step``, 126 launches per rank per step; (c) the
-    mesh train step, save at 2x1 and restore onto 1x2; (d) the pipeline."""
+    mesh train step, save at 2x1 and restore onto 1x2; (d) the pipeline.
+    ``after_timing()`` is called once the single-process step is timed."""
     t0 = time.time()
     cfg = lm_config()
     res = {"static": mesh_lm_static(cfg), "backend": "gloo"}
@@ -3589,6 +3626,8 @@ def mesh_lm_phase(dev, out_dir: Path, smi: str) -> dict:
     res["build_s"] = info["build_s"]
     inputs = mesh_lm_inputs(cfg, dev)
     single = median_ms(lambda: api.decode_step(cfg, params, inputs), reps=MESH_LM_TIMED)
+    after_timing()
+    res["counter"] = counter_on_card(cfg, params, inputs, single, smi)
     # the checkpoints (2.6 GB packed, 6.3 GB of train state) live only as
     # long as the phase: chiprun_out/ comes back from the card whole
     tmp = tempfile.TemporaryDirectory(dir=out_dir, prefix="mesh_lm_")
@@ -3616,12 +3655,14 @@ def mesh_lm_phase(dev, out_dir: Path, smi: str) -> dict:
             res[key] = r
             print(f"phase 14b: {key}: {MESH_LM_PER_STEP} launches per rank per step, "
                   f"{r['linears_equal']} linears torch.equal to the single-process kernel, "
-                  f"logits {r['logit_err']:.3g}·max|logit| from single-process; median step "
-                  f"{r['step_ms']:.1f} ms on rank 0 vs single-process {single:.3f} ms; "
+                  f"logits {r['logit_err']:.3g}·max|logit| from single-process; "
+                  + (f"median step {r['step_ms']:.1f} ms on rank 0" if r["step_ms"] is not None
+                     else "not timed (its gathers repeat 2x2 fp32 FSDP's)")
+                  + f" vs single-process {single:.3f} ms; "
                   f"FSDP weights gathered per rank per step (packed linears and the fp32 "
                   f"embedding table) {r['gathered_weight_bytes'] / 1e6:.1f} MB; gloo, all "
-                  f"{world} ranks on one "
-                  f"card: says nothing of scaling; {smi}")
+                  f"{world} ranks on one card: says nothing of scaling; case "
+                  f"{r['seconds']:.1f} s; {smi}")
         if "prefill" in per_rank[0]:
             r = per_rank[0]["prefill"]
             res["prefill 1x2"] = r
@@ -3635,25 +3676,165 @@ def mesh_lm_phase(dev, out_dir: Path, smi: str) -> dict:
                   f"against single-process: worst leaf {dn['2x1']['worst_leaf']:.3g} / "
                   f"{dn['1x2']['worst_leaf']:.3g} of its own update at 2x1 / 1x2 (gate "
                   f"{MESH_TRAIN_DENSE_TOL:g}), losses {dn['2x1']['losses']} / "
-                  f"{dn['1x2']['losses']} vs {dn['ref_losses']}, {dn['seconds']:.1f} s")
-            print(f"phase 14c: fp32 fake-quant, two steps against single-process: at 1x2 params "
-                  f"{tr['1x2']['param_err_over_update']:.3g} of the update in L2 (worst leaf "
-                  f"{tr['1x2']['worst_leaf']:.3g} of its own), at 2x1 (a Trainer) "
-                  f"{tr['2x1']['param_err_over_update']:.3g} (worst leaf "
-                  f"{tr['2x1']['worst_leaf']:.3g}); losses "
-                  f"{tr['1x2']['losses']} / {tr['2x1']['losses']} vs {tr['ref_losses']}; the "
-                  f"Trainer's 2 steps and save {tr['save_s']:.1f} s, resumed at 1x2 with params "
-                  f"and momenta torch.equal ({tr['restore_s']:.1f} s), one more step: loss "
-                  f"{tr['resumed_loss']:.4f}")
+                  f"{dn['1x2']['losses']} vs {dn['ref_losses']}, {dn['seconds']:.1f} s; "
+                  f"fake-quant single-process reference {tr['ref_s']:.1f} s")
+            a, b = tr["2x1"], tr["1x2"]
+            print(f"phase 14c: fp32 fake-quant against single-process: a Trainer's "
+                  f"step(s) 1-{a['steps']} at 2x1, params {a['param_err_over_update']:.3g} of the "
+                  f"update in L2 (worst leaf {a['worst_leaf']:.3g} of its own), steps and save "
+                  f"{tr['save_s']:.1f} s; a Trainer at 1x2 resumed from the save with params and "
+                  f"momenta torch.equal ({tr['restore_s']:.1f} s), after its step {b['steps']} "
+                  f"params {b['param_err_over_update']:.3g} (worst leaf "
+                  f"{b['worst_leaf']:.3g}), {b['seconds']:.1f} s; losses {b['losses']} vs "
+                  f"{tr['ref_losses']}")
             p = res["pipeline"] = per_rank[0]["pipeline"]
             print(f"phase 14d: GPipe, 2 stages of one gemma-2b layer, {MESH_PIPE_MICRO} "
                   f"microbatches of {MESH_PIPE_X}: {p['err']:.3g}·max|y| from reference_apply, "
                   f"{p['launches']} launches per rank")
-        print(f"phase 14: world {world}: {time.time() - t1:.1f} s")
+        print(f"phase 14: world {world}: {time.time() - t1:.1f} s (rank 0's whole restore of the "
+              f"packed checkpoint {per_rank[0]['restore_s']:.1f} s"
+              + (f", 14c {per_rank[0]['train']['seconds']:.1f} s" if "train" in per_rank[0]
+                 else "") + ")")
     tmp.cleanup()
+    res["seconds"] = time.time() - t0 - res["counter"]["seconds"]
+    print(f"phase 14: {res['seconds']:.1f} s without 15b (budget {MESH_LM_BUDGET_S} s); "
+          f"launches {res['launches']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (  # (module, its arguments): gemma-2b decode_32k on the 256-rank fake mesh
+    ("dense", ["repro_torch.launch.dryrun", "--arch", "gemma_2b", "--shape", "decode_32k",
+               "--mesh", "single", "--force"]),
+    ("tponly_binM2", ["repro_torch.launch.hillclimb", "--cell", "D", "--iter",
+                      "tponly_binM2"]))
+DRYRUN_TIMEOUT_S = 150
+DRYRUN_BUDGET_S = 60
+
+
+def counter_on_card(cfg, params, inputs, single_ms: float, smi: str) -> dict:
+    """15b: one decode group step of the packed gemma-2b at 8 slots under
+    ``CostCounter``: its logits ``torch.equal`` to the same step without the
+    counter, its counted ``binary_matmul`` calls equal to the launch
+    counter's delta, and the counted kernel MACs and bytes equal to the sum
+    of phase 7's per-call bound inputs at the recorded call shapes."""
+    from repro_torch.launch import cost_analysis as ca
+
+    t0 = time.time()
+    want, _ = api.decode_step(cfg, params, dict(inputs, cache=cm.tree_map(
+        torch.clone, inputs["cache"])))
+    calls = []
+    ops.reset_launch_counts()
+    with recorded_matmuls(calls), ca.CostCounter() as counter:
+        got, _ = api.decode_step(cfg, params, dict(inputs, cache=cm.tree_map(
+            torch.clone, inputs["cache"])))
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()["binary_matmul"]
+    if not torch.equal(got, want):
+        fail(f"phase 15b: the counted step's logits differ from the step without the counter "
+             f"(max |d| {float((got - want).abs().max()):.3g})")
+    macs = nbytes = 0
+    for x, B, alpha, kw, y in calls:
+        T, K, N = x.reshape(-1, kw["K"]).shape[0], kw["K"], B.shape[-1]
+        macs += T * K * N
+        nbytes += 4 * T * K + B.numel() + 4 * alpha.numel() + 4 * T * N
+    b = counter.binary
+    if not (b["calls"] == launched == len(calls) == MESH_LM_PER_STEP
+            and b["macs"] == macs and b["bytes"] == nbytes):
+        fail(f"phase 15b: counted {b} against {launched} launches, {len(calls)} calls, "
+             f"{macs} MACs and {nbytes} bytes at phase 7's per-call bound (want "
+             f"{MESH_LM_PER_STEP} calls)")
+    flops, moved = counter.total_flops(), counter.bytes_accessed
+    bound_ms = max(moved / ca.HBM_BW, ca.compute_seconds(counter.flops)) * 1e3
+    out = {"calls": b["calls"], "launches": launched, "macs": b["macs"],
+           "kernel_bytes": b["bytes"], "flops": flops, "flops_by_class": dict(counter.flops),
+           "bytes": moved, "peak_live_bytes": counter.peak_live_bytes,
+           "bound_ms": bound_ms, "step_ms": single_ms, "seconds": time.time() - t0}
+    print(f"phase 15b: gemma-2b packed decode step at {MESH_LM_SLOTS} slots under CostCounter: "
+          f"logits torch.equal to the step without it; {b['calls']} binary_matmul calls counted "
+          f"= {launched} launches; kernel MACs {b['macs']} and bytes {b['bytes']} = phase 7's "
+          f"per-call bound inputs; counted step {flops:.4g} FLOPs "
+          f"({', '.join(f'{k} {v:.4g}' for k, v in sorted(counter.flops.items()))}), "
+          f"{moved:.4g} bytes (unfused eager ops), peak {counter.peak_live_bytes / 1e9:.3f} GB "
+          f"made during the step: {bound_ms:.3f} ms at the data-sheet rates beside the measured "
+          f"step {single_ms:.3f} ms; {out['seconds']:.1f} s; {smi}")
+    return out
+
+
+def start_dryrun(out_dir: Path) -> dict:
+    """15a's subprocesses (``python -m repro_torch.launch.dryrun`` and
+    hillclimb cell D's ``tponly_binM2`` on a cuda-typed fake mesh), started
+    while phase 14's ranks run: they count on the host.  name -> (process,
+    its log file, its start time)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for name, args in DRYRUN_CELLS:
+        log = open(out_dir / f"dryrun_{name}.log", "w+")
+        procs[name] = (subprocess.Popen([sys.executable, "-m", *args, "--mesh-device", "cuda"],
+                                        cwd=ROOT, env=env, stdout=log,
+                                        stderr=subprocess.STDOUT, text=True),
+                       log, time.time())
+    return procs
+
+
+def stop_dryrun(procs: dict) -> None:
+    for proc, log, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def dryrun_phase(procs: dict, out_dir: Path, smi: str) -> dict:
+    """15a: the production dry run of gemma-2b decode_32k on a cuda-typed
+    fake mesh of 256 ranks, in the subprocesses of :func:`start_dryrun`,
+    each given DRYRUN_TIMEOUT_S from its start (the caller stops them with
+    :func:`stop_dryrun`): both records ok, the packed
+    one counting MESH_LM_PER_STEP binary_matmul calls per device,
+    model_flops = 2 · N_active · 128.  The phase's time is its wait."""
+    t0 = time.time()
+    logs = {}
+    for name, (proc, log, start) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, start + DRYRUN_TIMEOUT_S - time.time()))
+        except subprocess.TimeoutExpired:
+            fail(f"phase 15a: {name} ran past {DRYRUN_TIMEOUT_S} s")
+        log.seek(0)
+        logs[name] = log.read()
+        (out_dir / f"dryrun_{name}.log").unlink()
+    (out_dir / "dryrun.log").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+    cfg = get_config("gemma_2b")
+    model_flops = 2 * api.count_params(cfg, active_only=True) * 128
+    res = {"launches": {k: 0 for k in TPU_KERNELS}}
+    for name, _ in DRYRUN_CELLS:
+        if procs[name][0].returncode:
+            fail(f"phase 15a: {name}: exit {procs[name][0].returncode} "
+                 f"(chiprun_out/dryrun.log):\n{logs[name][-2000:]}")
+        tag = "" if name == "dense" else f"__{name}"
+        rec = json.loads((ROOT / "experiments" / "torch_dryrun" /
+                          f"gemma_2b__decode_32k__single{tag}.json").read_text())
+        calls = rec.get("binary_matmul", {}).get("calls")
+        want_calls = 0 if name == "dense" else MESH_LM_PER_STEP
+        if (rec["status"] != "ok" or rec["mesh_device"] != "cuda" or calls != want_calls
+                or rec["model_flops"] != model_flops):
+            fail(f"phase 15a: {name}: status {rec['status']} on {rec.get('mesh_device')}, "
+                 f"{calls} binary_matmul calls per device (want {want_calls}), model_flops "
+                 f"{rec.get('model_flops')} (want {model_flops}): {rec.get('error', '')}")
+        res[name] = {k: rec[k] for k in (
+            "flops_per_device", "flops_by_class", "bytes_per_device", "wire_bytes_per_device",
+            "compute_s", "memory_s", "collective_s", "bound", "model_flops",
+            "model_flops_ratio", "collective_ops", "memory_stats", "binary_matmul",
+            "total_s")}
+        print(f"phase 15a: gemma-2b decode_32k on the 16x16 fake mesh (cuda), {name}: compute "
+              f"{rec['compute_s']:.6f} s, memory {rec['memory_s']:.6f} s, collective "
+              f"{rec['collective_s']:.6f} s, bound {rec['bound']}, model_flops_ratio "
+              f"{rec['model_flops_ratio']:.4f}; {calls} binary_matmul calls per device; "
+              f"collectives {rec['collective_ops']}; counted in {rec['total_s']} s "
+              f"(H100 SXM5 data-sheet rates, an eager step's count; {smi})")
     res["seconds"] = time.time() - t0
-    print(f"phase 14: {res['seconds']:.1f} s (budget {MESH_LM_BUDGET_S} s); launches "
-          f"{res['launches']}")
     return res
 
 
@@ -3752,8 +3933,21 @@ def main() -> int:
     mesh_launches = mesh["launches"]
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_lm = mesh_lm_phase(dev, out_dir, smi)
+    dry_procs = {}
+    try:
+        mesh_lm = mesh_lm_phase(dev, out_dir, smi,
+                                lambda: dry_procs.update(start_dryrun(out_dir)))
+        dryrun = dryrun_phase(dry_procs, out_dir, smi)
+    finally:
+        stop_dryrun(dry_procs)
     mesh_lm_launches = mesh_lm["launches"]
+    dryrun["counter"] = mesh_lm.pop("counter")
+    dryrun["launches"]["binary_matmul"] = dryrun["counter"]["launches"]
+    dryrun["seconds"] += dryrun["counter"]["seconds"]
+    dryrun_launches = dryrun["launches"]
+    print(f"phase 15: {dryrun['seconds']:.1f} s (budget {DRYRUN_BUDGET_S} s; 15a's wait after "
+          f"phase 14, whose ranks its subprocesses ran beside; 15b ran on phase 14b's model); "
+          f"launches {dryrun_launches}")
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -3766,7 +3960,7 @@ def main() -> int:
                          + train["cnn_a"]["launches"][name] + fuzz_launches[name]
                          + soak_launches[name] + moe_launches[name] + ssm_launches[name]
                          + encdec_launches[name] + mesh_launches[name]
-                         + mesh_lm_launches[name]),
+                         + mesh_lm_launches[name] + dryrun_launches[name]),
             "max_abs_err": max([max_err[name]] + (
                 [lm["max_abs_err"]] + [moe[a]["max_abs_err"] for a in MOE_ARCHS]
                 + [ssm[a]["max_abs_err"] for a in SSM_ARCHS]
@@ -3781,21 +3975,23 @@ def main() -> int:
             "fuzz_launches": fuzz_launches[name], "soak_launches": soak_launches[name],
             "moe_launches": moe_launches[name], "ssm_launches": ssm_launches[name],
             "encdec_launches": encdec_launches[name], "mesh_launches": mesh_launches[name],
-            "mesh_lm_launches": mesh_lm_launches[name]})
+            "mesh_lm_launches": mesh_lm_launches[name],
+            "dryrun_launches": dryrun_launches[name]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
          "kernels": kernels, "layers": rows, "forward": forward, "profiles": profiles,
          "serve": serve, "lm": lm, "train": train, "verify": verify, "moe": moe, "ssm": ssm,
-         "encdec": encdec, "mesh": mesh, "mesh_lm": mesh_lm},
+         "encdec": encdec, "mesh": mesh, "mesh_lm": mesh_lm, "dryrun": dryrun},
         indent=1))
     print("timings: ms, plain_ms, library_ms and bound_ms sum one forward of CNN-A "
           "(batch 64) and one of MobileNetV1-224 (batch 16); launches counts phases 2 "
           "and 3 (three calls of each network), phase 7's serving of gemma-2b, phase "
           "8a's execute of the retrained CNN-A, phase 9a's fuzz, phase 9c's soaks, phase "
           "10's serving of DeepSeek-V3 and grok-1, phase 11's of mamba2-2.7b and zamba2-7b, "
-          "phase 12's of whisper-medium and internvl2-2b and phases 13 and 14's ranks; the LM "
-          "shapes' times are under \"lm\", \"moe\", \"ssm\" and \"encdec\", phase 13's under "
-          "\"mesh\" and phase 14's under \"mesh_lm\" in chiprun_out/chip_smoke.json")
+          "phase 12's of whisper-medium and internvl2-2b, phases 13 and 14's ranks and phase "
+          "15b's counted step; the LM shapes' times are under \"lm\", \"moe\", \"ssm\" and "
+          "\"encdec\", phase 13's under \"mesh\", phase 14's under \"mesh_lm\" and phase 15's "
+          "under \"dryrun\" in chiprun_out/chip_smoke.json")
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

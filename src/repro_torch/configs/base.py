@@ -11,8 +11,8 @@ same names and defaults, the two training knobs (``remat``,
 ``kv_seq_shard``, read by ``sharding/rules.py`` and
 ``launch/steps.build_serve_step``).  ``SHAPES`` and ``input_specs(cfg,
 shape)`` give the shape cells' model inputs as ``meta`` tensors (shape and
-dtype only, the JAX package's ``ShapeDtypeStruct``s).  The dry run's
-``cells`` is not ported yet (ROADMAP).
+dtype only, the JAX package's ``ShapeDtypeStruct``s), and ``cells(cfg)``
+the shape cells the dry run (``launch/dryrun.py``) lowers for an arch.
 """
 from __future__ import annotations
 
@@ -107,8 +107,19 @@ class ArchConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run long_500k decode? (SSM/hybrid/SWA)."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window is not None
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+    # ---- parameter count (for MODEL_FLOPS = 6*N*D roofline term) ----------
+    def param_count(self, active_only: bool = False) -> int:
+        from repro_torch.models import api
+
+        return api.count_params(self, active_only=active_only)
 
 
 def get_config(name: str) -> ArchConfig:
@@ -179,3 +190,11 @@ def input_specs(cfg: ArchConfig, shape_name: str) -> dict:
     return {"tokens": _spec((B, 1), torch.int32), "pos": _spec((B,), torch.int32),
             "cache": tree_map(lambda s: _spec(s.shape, s.dtype),
                               api.cache_specs(cfg, batch=B, max_len=S))}
+
+
+def cells(cfg: ArchConfig) -> list[str]:
+    """The shape cells this arch runs (long_500k only if sub-quadratic)."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        out.append("long_500k")
+    return out

@@ -4,7 +4,9 @@ Port of ``repro/deploy/compiler.py`` ``compile``.  Everything static is
 done once, here:
 
   1. **Pack** — fp trees are binarized (Algorithm 2) into the kernels'
-     packed layouts; packed trees are reused as they are.
+     packed layouts; packed trees are reused as they are, a conv that
+     carries only the flat ``B_packed`` stream repacked per tap
+     (``kernels/binary_conv.repack_taps``).
   2. **Plan** — one Hopper tile plan per instruction, picked for the
      compile-time ``input_shape`` by ``kernels/ops.py``'s pick functions
      (each pick bumps ``plan_pick_count()``) and frozen into the
@@ -33,6 +35,7 @@ from repro_torch.core.binlinear import QuantConfig
 from repro_torch.deploy.program import (BinArrayProgram, ConvInstr, DWConvInstr,
                                         GoldenRecord, LayerStats, LinearInstr,
                                         TilePlan)
+from repro_torch.kernels import binary_conv as bck
 from repro_torch.kernels import ops
 from repro_torch.models import cnn
 
@@ -60,12 +63,12 @@ def _bias(p: dict, n: int, dev: torch.device) -> torch.Tensor:
 
 
 def _compile_conv(spec, p, shape, quant, dev):
-    if "B_tap_packed" not in p:
-        if "B_packed" in p:
-            raise ValueError(f"{spec.name}: packed conv tree without B_tap_packed "
-                             "(flat-only trees are not supported by the port)")
-        p = binconv.binarize_conv_params(p, quant)
     B, H, W, C = shape
+    if "B_tap_packed" not in p:
+        if "B_packed" in p:      # a flat-only packed tree: upgrade its layout once
+            p = dict(p, B_tap_packed=bck.repack_taps(p["B_packed"], spec.kh, spec.kw, C))
+        else:
+            p = binconv.binarize_conv_params(p, quant)
     tap = _on(p["B_tap_packed"], torch.uint8, dev)
     M, T, C8, D = tap.shape
     kh, kw = spec.kh, spec.kw

@@ -44,6 +44,14 @@ def pack_taps(B: torch.Tensor, kh: int, kw: int, C: int) -> torch.Tensor:
     return bz.pack_bits(Bt).reshape(M, kh * kw, -1, D)
 
 
+def repack_taps(B_packed: torch.Tensor, kh: int, kw: int, C: int) -> torch.Tensor:
+    """Flat [M, ceil(K/8), D] uint8 -> per-tap [M, kh*kw, ceil(C/8), D] uint8
+    (K = kh*kw*C row-major over (tap_i, tap_j, c)): the one-time layout
+    upgrade of a packed tree that carries only the flat stream."""
+    B = bz.unpack_bits(B_packed, B_packed.shape[1] * 8)[:, :kh * kw * C, :]
+    return pack_taps(B, kh, kw, C)
+
+
 def unpack_taps(packed: torch.Tensor, C: int) -> torch.Tensor:
     """Per-tap packed [M, T, ceil(C/8), D] -> ±1 int8 [M, T*C, D]."""
     M, T, C8, D = packed.shape

@@ -25,6 +25,9 @@ from repro_torch.kernels import ref as kref
 _KERNELS = {"binary_conv": bck, "binary_dwconv": bdw, "binary_matmul": bmk}
 _plan_picks = 0
 _SMS = 132        # streaming multiprocessors of an H100 SXM
+# the active cost counters (``launch/cost_analysis.CostCounter`` adds itself
+# on entry and removes itself on exit); each gets every ``binary_matmul`` call
+reporters: list = []
 
 
 def plan_pick_count() -> int:
@@ -118,19 +121,35 @@ def binary_matmul(x: torch.Tensor, B_packed: torch.Tensor, alpha: torch.Tensor, 
                   K: int, group_size: int, m_active: int | None = None,
                   plan: tuple[int, int] | None = None) -> torch.Tensor:
     """y[..., N] = sum_{m<m_active} alpha_m ⊙ (x[..., K] @ B_m), summed in fp32
-    and returned in x's dtype (as the JAX wrapper does)."""
+    and returned in x's dtype (as the JAX wrapper does).
+
+    A ``meta`` x (the dry run) takes the card's route up to the launch and
+    gets ``torch.empty`` of the result's shape in place of the kernel's
+    output; no kernel and no plain version runs.  On the card and on
+    ``meta`` each call is reported to an active ``CostCounter``."""
     M, _, N = B_packed.shape
     m = min(m_active or M, M)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K)
-    if not _on_card(x):
+    if x.device.type == "meta":
+        x2 = x2.to(torch.float32).contiguous()
+        y = torch.empty((x2.shape[0], N), dtype=torch.float32, device="meta")
+        _report(x2.shape[0], K, N, B_packed, alpha)
+    elif not _on_card(x):
         y = kref.binary_matmul_ref(x2, B_packed, alpha, K=K, group_size=group_size,
                                    m_active=m)
     else:
         x2 = x2.to(torch.float32).contiguous()
         y = bmk.launch(x2, B_packed, alpha, K=K, group_size=group_size, m_active=m,
                        plan=plan or pick_matmul_plan(x2.shape[0], N))
+        if reporters:
+            _report(x2.shape[0], K, N, B_packed, alpha)
     return y.reshape(*lead, N).to(x.dtype)
+
+
+def _report(T: int, K: int, N: int, B_packed: torch.Tensor, alpha: torch.Tensor) -> None:
+    for counter in reporters:
+        counter.binary_matmul(T, K, N, B_packed, alpha)
 
 
 def binary_conv2d(x: torch.Tensor, B_tap_packed: torch.Tensor, alpha: torch.Tensor,

@@ -32,8 +32,15 @@ gradients land on their params' placements (a reduction over the data
 axes: the mean over the global batch), and the update runs on each rank's
 shard.  Every rank calls the step with the same global batch.  Left out on
 the mesh: ``grad_compress_M`` and the sequence-sharded (``seq_sharded``)
-rules.  The dry run's ``lower_train_step`` / ``lower_serve_step`` wait for
-the dry-run tooling (ROADMAP).
+rules.
+
+The dry run's entries, ``lower_train_step`` and ``lower_serve_step``, build
+the state (from ``api.param_shapes``, placed by ``param_pspecs``, and
+``optimizer.init`` over it) and the batch as ``meta`` DTensors on a mesh
+over a fake process group, and return a ``cost_analysis.Lowered``: its
+``compile()`` runs the same step once under a ``CostCounter``.  The
+lowered train step leaves out the host read of the loss, as the JAX
+package's lowered step has none.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import compress as gc
+from repro_torch.launch import cost_analysis
 from repro_torch.models import api
 from repro_torch.models import common as cm
 from repro_torch.models.common import tree_leaves, tree_map
@@ -108,16 +116,8 @@ def shard_batch(cfg: ArchConfig, batch: dict, mesh) -> dict:
     return shr.distribute_params(batch, shr.batch_pspecs(cfg, batch, mesh), mesh)
 
 
-def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
-                     microbatch: int | None = None, grad_compress_M: int = 0, mesh=None):
-    """Returns ``step_fn(state, batch) -> (state, metrics)``, the state
-    updated in place.  ``microbatch`` > 1 splits the batch's rows into that
-    many slices and averages their fp32 gradients and metrics.  With
-    ``mesh`` the state is ``init_train_state(..., mesh=mesh)``'s and the
-    batch the global one."""
-    if mesh is not None and grad_compress_M:
-        raise NotImplementedError("binary gradient compression on a mesh is not ported")
-
+def _grads_fn(cfg: ArchConfig, microbatch: int | None, mesh):
+    """``grads_of(params, batch) -> (grads, metrics)`` of the train step."""
     def loss_fn(params, batch):
         return api.loss_fn(cfg, params, batch)
 
@@ -153,18 +153,65 @@ def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
         return (tree_map(lambda a: a.div_(microbatch), acc),
                 {k: v / microbatch for k, v in met.items()})
 
+    return grads_of
+
+
+def _update(optimizer: Optimizer, state: dict, grads, grad_compress_M: int = 0) -> None:
+    """The train step's update of ``state`` in place."""
+    if grad_compress_M:
+        grads, state["grad_comp"] = gc.compress_grads(grads, state["grad_comp"],
+                                                      M=grad_compress_M)
+    optimizer.update(grads, state["opt_state"], state["params"], state["step"])
+    state["step"] = state["step"] + 1
+
+
+def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
+                     microbatch: int | None = None, grad_compress_M: int = 0, mesh=None):
+    """Returns ``step_fn(state, batch) -> (state, metrics)``, the state
+    updated in place.  ``microbatch`` > 1 splits the batch's rows into that
+    many slices and averages their fp32 gradients and metrics.  With
+    ``mesh`` the state is ``init_train_state(..., mesh=mesh)``'s and the
+    batch the global one."""
+    if mesh is not None and grad_compress_M:
+        raise NotImplementedError("binary gradient compression on a mesh is not ported")
+    grads_of = _grads_fn(cfg, microbatch, mesh)
+
     def step_fn(state, batch):
         grads, metrics = grads_of(state["params"], batch)
         if not bool(torch.isfinite(metrics["loss"])):
             return state, dict(metrics, skipped=True)
-        if grad_compress_M:
-            grads, state["grad_comp"] = gc.compress_grads(grads, state["grad_comp"],
-                                                          M=grad_compress_M)
-        optimizer.update(grads, state["opt_state"], state["params"], state["step"])
-        state["step"] = state["step"] + 1
+        _update(optimizer, state, grads, grad_compress_M)
         return state, dict(metrics, skipped=False)
 
     return step_fn
+
+
+def _no_seq_sharding(seq_sharded: bool) -> None:
+    if seq_sharded:
+        raise NotImplementedError("the sequence-sharded rules are not ported to the mesh steps")
+
+
+def lower_train_step(cfg: ArchConfig, mesh, optimizer: Optimizer, batch_specs, *,
+                     microbatch: int | None = None, seq_sharded: bool = False):
+    """Dry-run entry: the mesh train step over ``meta`` DTensors (the
+    state from ``api.param_shapes``, FSDP+TP, and ``optimizer.init`` over
+    it; ``batch_specs`` the global batch of ``configs/base.input_specs``),
+    as a ``cost_analysis.Lowered``.  ``microbatch`` > 1 accumulates
+    gradients over slices of the batch, as ``build_train_step`` does."""
+    _no_seq_sharding(seq_sharded)
+    specs = train_state_specs(cfg, mesh, optimizer)
+    params = shr.distribute_params(api.param_shapes(cfg), specs["params"], mesh)
+    state = {"params": params, "opt_state": optimizer.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    grads_of = _grads_fn(cfg, microbatch, mesh)
+
+    def step_fn(state, batch):
+        grads, metrics = grads_of(state["params"], batch)
+        _update(optimizer, state, grads)
+        return state, metrics
+
+    return cost_analysis.Lowered(step_fn, (state, batch_specs), cost_analysis.local_bytes(
+        (state, shard_batch(cfg, batch_specs, mesh))))
 
 
 # ---------------------------------------------------------------------------
@@ -211,3 +258,22 @@ def build_serve_step(cfg: ArchConfig, mesh, *, kind: str = "decode",
     """The serve step of ``cfg`` on ``mesh``; ``fsdp_params`` defaults to
     ``cfg.serve_fsdp``."""
     return ServeStep(cfg, mesh, kind, cfg.serve_fsdp if fsdp_params is None else fsdp_params)
+
+
+def lower_serve_step(cfg: ArchConfig, mesh, batch_specs, *, kind: str = "decode",
+                     seq_sharded: bool = False, fsdp_params: bool = True):
+    """Dry-run entry for decode/prefill steps: ``build_serve_step``'s step
+    over ``meta`` DTensors, as a ``cost_analysis.Lowered``.
+
+    ``cfg.quant.mode == 'binary'`` lowers over the PACKED parameter tree
+    (``api.param_shapes(cfg, qc=cfg.quant)``, the paper's deployment form),
+    each binary linear through ``binary_matmul``'s meta route.
+    ``fsdp_params=False`` shards params TP-only (replicated over the DP
+    axes)."""
+    _no_seq_sharding(seq_sharded)
+    step = build_serve_step(cfg, mesh, kind=kind, fsdp_params=fsdp_params)
+    qc = cfg.quant if cfg.quant.mode == "binary" else None
+    params = step.shard_params(api.param_shapes(cfg, qc=qc))
+    batch = step.shard_batch(batch_specs)
+    return cost_analysis.Lowered(step, (params, batch),
+                                 cost_analysis.local_bytes((params, batch)))

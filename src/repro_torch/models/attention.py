@@ -59,12 +59,23 @@ def init_attn(gen: torch.Generator, cfg: ArchConfig, *, device="cuda") -> dict:
     return p
 
 
+def split_heads(y, n_heads: int, head_dim: int):
+    """A projection's output [B, S, n_heads * head_dim] -> [B, S, n_heads,
+    head_dim].  A DTensor whose ``"model"`` axis does not divide
+    ``n_heads`` is first made whole but for its batch rows
+    (``placement.whole_rows``): DTensor cannot unflatten a dim whose split
+    cuts a head (the JAX package's GSPMD reshards there)."""
+    B, S, _ = y.shape
+    if pl.is_dtensor(y) and n_heads % pl.model_size(y.device_mesh):
+        y = pl.whole_rows(y)
+    return y.reshape(B, S, n_heads, head_dim)
+
+
 def _project_qkv(params, x, cfg: ArchConfig, positions):
-    B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = cm.linear(params["wq"], x, cfg.quant).reshape(B, S, cfg.n_heads, hd)
-    k = cm.linear(params["wk"], x, cfg.quant).reshape(B, S, cfg.n_kv_heads, hd)
-    v = cm.linear(params["wv"], x, cfg.quant).reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_heads(cm.linear(params["wq"], x, cfg.quant), cfg.n_heads, hd)
+    k = split_heads(cm.linear(params["wk"], x, cfg.quant), cfg.n_kv_heads, hd)
+    v = split_heads(cm.linear(params["wv"], x, cfg.quant), cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = cm.rms_norm(params["q_norm"], q, cfg.norm_eps)
         k = cm.rms_norm(params["k_norm"], k, cfg.norm_eps)
@@ -94,14 +105,15 @@ def _gqa_out(weights, v):
     return o.reshape(B, Sq, H * v.shape[-1])
 
 
-def _attend(q, k, v, valid) -> torch.Tensor:
+def _attend(q, k, v, valid=None) -> torch.Tensor:
     """Softmax attention of q over k/v where ``valid`` (broadcast against
-    [B, H, Sq, Sk]) is True.  Over DTensors the operands, and the output's
-    gradient, are made whole on every rank but their batch rows
-    (``placement.whole_rows``, ``placement.grads_as``)."""
-    q, k, v = pl.whole_rows(q), pl.whole_rows(k), pl.whole_rows(v)
-    logits = _gqa_scores(q, k).masked_fill(~valid, NEG_INF)
-    return pl.grads_as(_gqa_out(torch.softmax(logits, dim=-1), v))
+    [B, H, Sq, Sk]) is True, everywhere without it.  Over DTensors it runs
+    on each rank's batch rows, every head whole (``placement.batch_local``)."""
+    (q, k, v, valid), back = pl.batch_local(q, k, v, valid)
+    logits = _gqa_scores(q, k)
+    if valid is not None:
+        logits = logits.masked_fill(~valid, NEG_INF)
+    return back(_gqa_out(torch.softmax(logits, dim=-1), v))
 
 
 def attn_forward(params, x, cfg: ArchConfig, *, positions=None, mask=None):
@@ -247,7 +259,6 @@ def init_mla(gen: torch.Generator, cfg: ArchConfig, *, device="cuda") -> dict:
 
 
 def _mla_queries(params, x, cfg: ArchConfig, positions):
-    B, S, _ = x.shape
     H, qk, r = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     if cfg.q_lora_rank:
         cq = cm.rms_norm(params["q_norm"], cm.linear(params["wdq"], x, cfg.quant),
@@ -255,7 +266,7 @@ def _mla_queries(params, x, cfg: ArchConfig, positions):
         q = cm.linear(params["wuq"], cq, cfg.quant)
     else:
         q = cm.linear(params["wq"], x, cfg.quant)
-    q = q.reshape(B, S, H, qk + r)
+    q = split_heads(q, H, qk + r)
     return q[..., :qk], cm.apply_rope(q[..., qk:], positions, cfg.rope_theta)
 
 
@@ -278,17 +289,18 @@ def _mla_attend(params, x, cfg: ArchConfig, positions, mask):
         positions = torch.arange(S, device=x.device)[None, :]
     q_nope, q_rope = _mla_queries(params, x, cfg, positions)
     c_kv, k_rope = _mla_latents(params, x, cfg, positions)
-    k_nope = cm.linear(params["wuk"], c_kv, cfg.quant).reshape(B, S, H, qk)
-    v = cm.linear(params["wuv"], c_kv, cfg.quant).reshape(B, S, H, vd)
+    k_nope = split_heads(cm.linear(params["wuk"], c_kv, cfg.quant), H, qk)
+    v = split_heads(cm.linear(params["wuv"], c_kv, cfg.quant), H, vd)
+    (qn, qr, kn, kr, vl), back = pl.batch_local(q_nope, q_rope, k_nope, k_rope, v)
     f32 = torch.float32
-    logits = (torch.einsum("bqhd,bshd->bhqs", q_nope.to(f32), k_nope.to(f32))
-              + torch.einsum("bqhd,bsd->bhqs", q_rope.to(f32), k_rope.to(f32))) \
+    logits = (torch.einsum("bqhd,bshd->bhqs", qn.to(f32), kn.to(f32))
+              + torch.einsum("bqhd,bsd->bhqs", qr.to(f32), kr.to(f32))) \
         * (1.0 / math.sqrt(qk + r))
     if mask is None:
         mask = cm.causal_mask(S, device=x.device)
     w = torch.softmax(logits.masked_fill(~mask[None, None], NEG_INF), dim=-1).to(x.dtype)
-    o = torch.einsum("bhqs,bshd->bqhd", w.to(f32), v.to(f32))
-    o = o.reshape(B, S, H * vd).to(x.dtype)
+    o = torch.einsum("bhqs,bshd->bqhd", w.to(f32), vl.to(f32))
+    o = back(o.reshape(o.shape[0], S, H * vd).to(x.dtype))
     return cm.linear(params["wo"], o, cfg.quant), c_kv, k_rope
 
 

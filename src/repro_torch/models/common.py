@@ -70,12 +70,15 @@ def logical_spec(shape, logical, rules: dict, sizes: dict[str, int]) -> Partitio
 def shard(x: torch.Tensor, *logical: str | None) -> torch.Tensor:
     """``with_sharding_constraint`` by logical axis names: a DTensor is
     redistributed to the spec's placements (a dim named by no rule is
-    replicated); no-op without rules or on a plain tensor."""
+    replicated), its local shard made contiguous (a dim that splits
+    unevenly comes back as a narrowed view, which a later view of the
+    shard cannot take); no-op without rules or on a plain tensor."""
     rules = get_axis_rules()
     if rules is None or not pl.is_dtensor(x):
         return x
     spec = logical_spec(x.shape, logical, rules, getattr(_STATE, "axis_sizes", {}))
-    return x.redistribute(x.device_mesh, pl.spec_placements(spec, x.device_mesh))
+    return pl.contiguous_local(x.redistribute(x.device_mesh,
+                                              pl.spec_placements(spec, x.device_mesh)))
 
 
 # ---------------------------------------------------------------------------

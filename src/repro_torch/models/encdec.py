@@ -65,19 +65,16 @@ def _n_layers(stacked) -> int:
 
 def _cross_attend(params, x, enc_kv, cfg: ArchConfig):
     """x: [B, Sq, D] queries; enc_kv = (k, v): [B, Se, kv, hd]."""
-    B, Sq, _ = x.shape
-    q = cm.linear(params["wq"], x, cfg.quant).reshape(B, Sq, cfg.n_heads,
-                                                      cfg.resolved_head_dim)
+    q = attn.split_heads(cm.linear(params["wq"], x, cfg.quant), cfg.n_heads,
+                         cfg.resolved_head_dim)
     k, v = enc_kv
-    w = torch.softmax(attn._gqa_scores(q, k), dim=-1)
-    return cm.linear(params["wo"], attn._gqa_out(w, v).to(x.dtype), cfg.quant)
+    return cm.linear(params["wo"], attn._attend(q, k, v).to(x.dtype), cfg.quant)
 
 
 def _enc_kv(params, enc_out, cfg: ArchConfig):
-    B, Se, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    k = cm.linear(params["wk"], enc_out, cfg.quant).reshape(B, Se, cfg.n_kv_heads, hd)
-    v = cm.linear(params["wv"], enc_out, cfg.quant).reshape(B, Se, cfg.n_kv_heads, hd)
+    k = attn.split_heads(cm.linear(params["wk"], enc_out, cfg.quant), cfg.n_kv_heads, hd)
+    v = attn.split_heads(cm.linear(params["wv"], enc_out, cfg.quant), cfg.n_kv_heads, hd)
     return k, v
 
 

@@ -21,11 +21,11 @@ propagation and works on a rank's local shard:
     (``core/binlinear.py``);
   * :func:`write_rows` — the decode step's in-place cache write, done on
     each rank's shard so the cache keeps its storage and placements;
-  * :func:`whole_rows` — attention's operands made whole on every rank
-    but their batch rows, and (:func:`grads_as`) its output's gradient
-    too: the reshapes around its score and value products merge and split
-    the heads and head dims, which DTensor (torch 2.11) refuses to do on a
-    split dim;
+  * :func:`batch_local` — attention's operands made whole on every rank
+    but their batch rows, and computed on as local tensors: the reshapes
+    around its score and value products merge and split the heads and
+    head dims, which DTensor (torch 2.11) refuses to do on a split dim;
+    :func:`whole_rows` does the same for one DTensor and keeps it one;
   * :func:`sum_over_shards` — a global sum from per-shard sums (the
     optimizer's gradient norm; the update itself is elementwise and runs
     on the local shards).
@@ -132,18 +132,39 @@ def from_local(t: torch.Tensor, mesh, placements, shape) -> DTensor:
                               stride=stride)
 
 
-def _model_dim(mesh) -> int | None:
+def model_dim(mesh) -> int | None:
+    """The index of the mesh's ``"model"`` dim (None when it has none)."""
     names = tuple(mesh.mesh_dim_names)
     return names.index(MODEL_AXIS) if MODEL_AXIS in names else None
+
+
+
+
+def model_size(mesh) -> int:
+    """The size of the mesh's ``"model"`` axis (1 when it has none)."""
+    m = model_dim(mesh)
+    return 1 if m is None else mesh.size(m)
 
 
 def _on_model(mesh, i: int, m: int | None, dim: int, other):
     return Shard(dim) if i == m and mesh.size(i) > 1 else other
 
 
+def model_local(t: DTensor) -> tuple[torch.Tensor, object]:
+    """A DTensor gathered whole on every mesh dim but ``"model"`` (its FSDP
+    split undone), as the rank's local tensor, and its placement on
+    ``"model"`` (``Replicate()`` on a mesh without one).  Differentiable:
+    the gather's backward reduce-scatters the gradient back."""
+    mesh = t.device_mesh
+    m = model_dim(mesh)
+    placements = tuple(p if i == m else Replicate() for i, p in enumerate(t.placements))
+    return (t.redistribute(mesh, placements).to_local(),
+            placements[m] if m is not None else Replicate())
+
+
 def column_placements(mesh, ndim: int) -> tuple:
     """The last dim split on ``"model"``, every other mesh dim replicated."""
-    m = _model_dim(mesh)
+    m = model_dim(mesh)
     return tuple(_on_model(mesh, i, m, ndim - 1, Replicate()) for i in range(mesh.ndim))
 
 
@@ -162,7 +183,7 @@ def row_placements(x: DTensor) -> tuple:
     """Where a linear's input must be for the column-parallel kernel: whole
     along K (replicated on ``"model"``), its rows left split on the data
     axes where they are split by the leading (batch) dim."""
-    m = _model_dim(x.device_mesh)
+    m = model_dim(x.device_mesh)
     return tuple(p if (i != m and isinstance(p, Shard) and p.dim == 0 and x.ndim > 1)
                  else Replicate() for i, p in enumerate(x.placements))
 
@@ -180,20 +201,56 @@ def rows_local(x, mesh) -> tuple[torch.Tensor, tuple]:
     return x.to_local(), x.placements
 
 
-def grads_as(t):
-    """An identity on ``t`` whose backward moves the incoming gradient to
-    ``t``'s placements (DTensor lets a gradient arrive in any placement;
-    the reshapes behind it may refuse a split one)."""
-    if not isinstance(t, DTensor):
+def contiguous_local(t):
+    """A DTensor whose local shard is contiguous: a dim split unevenly
+    comes back from a redistribution as a narrowed view, which a later view
+    of the shard cannot take (and DTensor's ``contiguous`` keeps); a plain
+    tensor, or a contiguous shard, as it is.  Differentiable."""
+    if not isinstance(t, DTensor) or t.to_local().is_contiguous():
         return t
-    return DTensor.from_local(t.to_local(grad_placements=t.placements), t.device_mesh,
-                              t.placements, run_check=False, shape=t.shape, stride=t.stride())
+    loc = t.to_local(grad_placements=t.placements).contiguous()
+    return DTensor.from_local(loc, t.device_mesh, t.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def batch_local(*ts):
+    """Operands of one batched computation (attention's q, k, v and mask)
+    as plain local tensors that hold the same batch rows on every rank,
+    every other dim whole, and ``back(y)`` that makes a local result the
+    global DTensor again.  A mesh dim other than ``"model"`` keeps the rows
+    split where an operand has them split (the others are sliced to match,
+    a plain operand of the batch's length included); every other split is
+    gathered.  With no DTensor among them, the operands as they are and
+    ``back`` the identity.  Differentiable.  (Attention on the local rows
+    runs none of DTensor's sharding propagation, which is slow on the
+    first sight of each batched product, and takes the reshapes around its
+    products, which DTensor refuses on a split dim.)"""
+    ds = [t for t in ts if isinstance(t, DTensor)]
+    if not ds:
+        return list(ts), lambda y: y
+    mesh, B = ds[0].device_mesh, ds[0].shape[0]
+    m = model_dim(mesh)
+    rows = tuple(Shard(0) if i != m and any(
+        isinstance(t.placements[i], Shard) and t.placements[i].dim == 0
+        for t in ds if t.ndim > 1 and t.shape[0] == B) else Replicate()
+        for i in range(mesh.ndim))
+    whole = (Replicate(),) * mesh.ndim
+    out = []
+    for t in ts:
+        batched = t is not None and t.ndim > 1 and t.shape[0] == B
+        if not isinstance(t, DTensor):
+            if not (batched and B > 1 and rows != whole):
+                out.append(t)
+                continue
+            t = as_dtensor(t, mesh)
+        out.append(t.redistribute(mesh, rows if batched else whole).to_local())
+    return out, lambda y: from_local(y, mesh, rows, (B,) + tuple(y.shape[1:]))
 
 
 def columns_out(y: torch.Tensor, mesh, row_pl, shape) -> DTensor:
     """A column-parallel product's local ``y`` as the global DTensor: rows
     placed as its input's, columns split on ``"model"``."""
-    m = _model_dim(mesh)
+    m = model_dim(mesh)
     pl = tuple(_on_model(mesh, i, m, len(shape) - 1, p) for i, p in enumerate(row_pl))
     return from_local(y, mesh, pl, shape)
 

@@ -188,12 +188,15 @@ def test_ops_route_cpu_tensors_to_plain_versions_without_launching():
                            torch.ones(1, 1, 3), K=405, group_size=405)
     torch.testing.assert_close(y, x.reshape(2, -1).sum(-1, keepdim=True).expand(2, 3),
                                rtol=RTOL, atol=ATOL)
+    # a meta x (the dry run) gets the result's shape and dtype and runs nothing;
+    # the conv wrappers have no meta route
+    y = tops.binary_matmul(x.reshape(2, -1).to("meta", torch.bfloat16), tbz.pack_bits(
+        torch.ones(1, 408, 3, dtype=torch.int8)), torch.ones(1, 1, 3), K=405, group_size=405)
+    assert y.device.type == "meta" and y.shape == (2, 3) and y.dtype == torch.bfloat16
     assert tops.launch_counts() == {"binary_conv": 0, "binary_dwconv": 0, "binary_matmul": 0}
     assert tops.plan_pick_count() == picks
     with pytest.raises(ValueError, match="unsupported device"):
-        tops.binary_matmul(x.reshape(2, -1).to("meta"), tbz.pack_bits(
-            torch.ones(1, 408, 3, dtype=torch.int8)), torch.ones(1, 1, 3), K=405,
-            group_size=405)
+        tops.binary_conv2d(x.to("meta"), tap, alpha, bias, kh=4, kw=4, padding="SAME", pool=3)
 
 
 @pytest.mark.parametrize("P", [1, 7, 49 * 16, 3 * 3 * 64, 112 * 112 * 16, 10 ** 7])

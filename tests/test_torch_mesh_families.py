@@ -1,0 +1,135 @@
+"""The mesh LM on the families and head counts the sharded-LM tests do not
+reach, on spawned CPU ranks (gloo), against the port's single-process
+steps on the same params (``test_torch_lm_*.py`` hold those against the
+JAX package).
+
+One ``run_local`` spawn of world 4 (rank body in
+``tests/_torch_mesh_family_ranks.py``, which imports no jax), the
+references computed here while it runs:
+
+  * reduced gemma widened to 2 heads of head_dim 512 (one kv head) on a
+    1x4 mesh: the rules split wq's 1024 and wk/wv's 512 columns over the
+    4-wide ``"model"`` axis, which divides neither head count, so the head
+    view must take the projection whole (``attention.split_heads``);
+  * reduced DeepSeek-V3 (MLA, one dense and one MoE layer, 4 experts top-2,
+    the MTP head) on a 2x2 mesh, its experts split on ``"model"``, and
+    reduced grok-1 cut to 2 experts on a 1x4 mesh, which the rules split by
+    the experts' hidden dim instead (as grok's 8 experts on a 16-wide
+    axis): routing and dispatch on plain tensors, the expert products on
+    each rank's shards of the banks.  Capacity couples a request's
+    tokens to its neighbours (ROADMAP, places that need care), so the mesh
+    is held against single-process on the same batch, and the expert ids
+    of every MoE call are compared explicitly (``torch.topk`` promises no
+    tie order).
+
+Each case runs one decode step (4 slots, a random cache) and one prefill
+forward (4 x 8 tokens).  Tolerance rtol 1e-4 / atol 1e-4·max|logit|, the
+sharded-LM tests' (MKL's sums change order when a product's rows or
+columns are split).
+"""
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_mesh_family_ranks as ranks
+from repro_torch.configs import base as tcb
+from repro_torch.convert import params_from_numpy
+from repro_torch.distributed import run_local
+from repro_torch.models import api, moe
+from repro_torch.models import common as tcm
+
+SLOTS, MAX_LEN, PROMPT = 4, 16, 8
+POS = np.array([3, 0, 7, 5], np.int32)
+CASES = {"gemma_2x512": (lambda: tcb.reduced(tcb.get_config("gemma_2b")).replace(
+             dtype="float32", n_heads=2, head_dim=512), 4),
+         "deepseek": (lambda: tcb.reduced(tcb.get_config("deepseek_v3_671b")).replace(
+             dtype="float32"), 2),
+         "grok_2_experts": (lambda: tcb.reduced(tcb.get_config("grok_1_314b")).replace(
+             dtype="float32", n_experts=2), 4)}
+MOE = ("deepseek", "grok_2_experts")
+
+
+def _inputs(cfg, seed):
+    rng = np.random.default_rng(seed)
+    cache = tcm.tree_map(lambda s: rng.standard_normal(s.shape).astype(np.float32),
+                         api.cache_specs(cfg, SLOTS, MAX_LEN))
+    batch = {"tokens": rng.integers(0, cfg.vocab, (SLOTS, 1)).astype(np.int32), "pos": POS,
+             "cache": cache}
+    return batch, rng.integers(0, cfg.vocab, (SLOTS, PROMPT)).astype(np.int32)
+
+
+def _single_process(cfg, batch_np, prompt_np) -> dict:
+    ids, real = [], moe.route
+    moe.route = ranks.recording_route(ids)
+    try:
+        params = ranks.params_of(cfg)
+        with torch.no_grad():
+            logits, _ = api.decode_step(cfg, params, params_from_numpy(batch_np, device="cpu"))
+            decode_ids = list(ids)
+            ids.clear()
+            prefill, _ = api.forward(cfg, params, {"tokens": torch.from_numpy(prompt_np)})
+    finally:
+        moe.route = real
+    return {"decode": logits.numpy(), "prefill": prefill.numpy(), "decode_ids": decode_ids,
+            "prefill_ids": list(ids)}
+
+
+@pytest.fixture(scope="module")
+def meshed():
+    cases, refs = [], {}
+    for i, (name, (make, n_model)) in enumerate(CASES.items()):
+        cfg = make()
+        batch, prompt = _inputs(cfg, i)
+        cases.append((name, cfg, n_model, batch, prompt))
+    out = {}
+
+    def spawn():
+        try:
+            out["ranks"] = run_local(4, ranks.serve, cases, timeout_s=240)
+        except BaseException as e:  # noqa: BLE001 — raised below, in the test's thread
+            out["ranks"] = e
+
+    t = threading.Thread(target=spawn)
+    t.start()
+    try:
+        for name, cfg, _, batch, prompt in cases:
+            refs[name] = _single_process(cfg, batch, prompt)
+    finally:
+        t.join()
+    if isinstance(out["ranks"], BaseException):
+        raise out["ranks"]
+    return out["ranks"], refs
+
+
+def _rel_close(got, want, rtol=1e-4):
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_mesh_logits_match_single_process(meshed, name, kind):
+    per_rank, refs = meshed
+    for r in per_rank:
+        _rel_close(r[name][kind], refs[name][kind])
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+@pytest.mark.parametrize("name", MOE)
+def test_mesh_moe_routes_like_single_process(meshed, name, kind):
+    """Every MoE call's expert ids: a decode routes every row on every rank
+    (its dispatch is global); a prefill routes the rows of the rank's data
+    coordinate."""
+    per_rank, refs = meshed
+    want = refs[name][f"{kind}_ids"]
+    n_model = CASES[name][1]
+    assert want
+    for rank, r in enumerate(per_rank):
+        got = r[name][f"{kind}_ids"]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            if kind == "prefill":
+                rows = w.shape[0] // (len(per_rank) // n_model)
+                w = w[rank // n_model * rows:(rank // n_model + 1) * rows]
+            np.testing.assert_array_equal(g, w)
