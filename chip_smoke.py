@@ -210,8 +210,20 @@ source, all at once) and runs, each phase failing loudly:
      momenta ``torch.equal``) and takes the second step, each held against
      single-process; (d) a
      GPipe pipeline of 2 full-width packed layers against
-     ``reference_apply``.  Times are rank 0's beside the single-process
-     step: no scaling claim.  Numbers under ``"mesh_lm"``;
+     ``reference_apply``; (e) the sequence-sharded prefill
+     (``seq_sharded``) of the packed gemma-2b, one prompt of 512 tokens
+     (B = 1) at 2x1 and 2x2, TP-only: 126 launches per rank per pass,
+     each on the rank's 256 rows of the sequence, each linear's output
+     ``torch.equal`` to the single-process prefill kernel's at the same
+     rows and columns, the logits within 1e-4·max|logit|; (f) the 2-layer
+     cut, dense, with binary gradient compression (M=2): one mesh step
+     at 2x1 and one at 1x2 against a single-process compressed step,
+     each leaf's alphas within rtol 1e-5, its reconstructed gradient
+     within 1e-5·sum(alpha) (the same signs) but where the single-process
+     residual at some level lies within 1e-4·alpha, or within the two
+     sides' own gradient difference, of 0 (counted), its update and error
+     within 1e-3 of their own L2 there.  Times are rank 0's beside the
+     single-process step: no scaling claim.  Numbers under ``"mesh_lm"``;
  15. the dry run (``launch/{cost_analysis,steps,dryrun,hillclimb}.py``):
      (a) ``python -m repro_torch.launch.dryrun`` on gemma-2b decode_32k
      over a cuda-typed fake process group of 256 ranks, dense and as
@@ -3225,6 +3237,11 @@ MESH_TRAIN_STEPS = 1            # the 2x1 Trainer's fake-quant steps before its 
 MESH_TRAIN_DENSE_TOL = 1e-3     # each leaf's update against its own L2 (dense: no sign flips)
 MESH_PIPE_X, MESH_PIPE_MICRO = (8, 64, 2048), 4
 MESH_LM_PER_STEP = len(MESH_LM_LINEARS) * 18          # gemma-2b's binary linears per pass
+MESH_SEQ_TOKENS = 512                                 # 14e: one prompt (B = 1)
+MESH_SEQ_SHAPES = ((2, 1), (2, 2))                    # 14e's meshes, TP-only
+MESH_COMPRESS_M = 2                                   # 14f: levels of the gradient
+MESH_COMPRESS_NEAR = 1e-4     # |residual| within this·alpha of 0: a sign either way
+MESH_COMPRESS_TOL = (1e-5, 1e-3)   # alphas' and recon's rtol; update's and error's L2 rtol
 MESH_LM_BUDGET_S = 90                                 # the time phase 14 was planned to take
 
 
@@ -3565,6 +3582,243 @@ def train_case(dev, meshes: dict, ckpt_dir: str) -> dict:
     return out
 
 
+def local_part(whole: torch.Tensor, like) -> torch.Tensor:
+    """The part of ``whole`` (a tensor of ``like``'s global shape) that
+    this rank holds of the DTensor ``like``: a view, on ``whole``'s
+    device."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    n, off = compute_local_shape_and_global_offset(like.shape, like.device_mesh, like.placements)
+    return whole[tuple(slice(o, o + k) for o, k in zip(off, n))]
+
+
+def seq_prefill_case(cfg, full, mesh, shape, dev) -> dict:
+    """14e: one prompt of MESH_SEQ_TOKENS tokens (B = 1) through the
+    sequence-sharded packed prefill on ``mesh``, TP-only: every kernel call
+    on the rank's rows of the sequence, its output ``torch.equal`` to the
+    single-process prefill kernel's at the same rows and columns (a
+    single-process call runs all the rows at another plan: the kernel is
+    bit-identical across plans), the rank's logits within
+    1e-4·max|logit| of the same part of single-process ``api.forward``'s;
+    then one timed pass of each (CUDA events)."""
+    n_data, n_model = shape
+    seq, col = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    rows = MESH_SEQ_TOKENS // n_data
+    tokens = torch.randint(0, cfg.vocab, (1, MESH_SEQ_TOKENS), generator=torch.Generator()
+                           .manual_seed(17), dtype=torch.int32).to(dev)
+    want_rows, real = [], ops.binary_matmul
+
+    def keep(x, B_packed, alpha, **kw):
+        y = real(x, B_packed, alpha, **kw)
+        n = B_packed.shape[-1] // n_model
+        want_rows.append(y[:, seq * rows:(seq + 1) * rows, col * n:(col + 1) * n].clone())
+        return y
+    ops.binary_matmul = keep
+    try:
+        want, _ = api.forward(cfg, full, {"tokens": tokens})
+    finally:
+        ops.binary_matmul = real
+    step = train_steps.build_serve_step(cfg, mesh, kind="prefill", fsdp_params=False,
+                                        seq_sharded=True)
+    params, batch = step.shard_params(full), step.shard_batch({"tokens": tokens})
+    calls = []
+    with recorded_matmuls(calls):
+        logits, n = counted_step(lambda: step(params, batch))
+    where = f"mesh LM sequence-sharded prefill {shape[0]}x{shape[1]}"
+    if n != MESH_LM_PER_STEP or len(calls) != len(want_rows):
+        raise RuntimeError(f"{where}: {n} launches, {len(calls)} calls, want "
+                           f"{MESH_LM_PER_STEP} and {len(want_rows)}")
+    for i, ((x, _, _, _, y), w) in enumerate(zip(calls, want_rows)):
+        a, lin = MESH_LM_LINEARS[i % len(MESH_LM_LINEARS)]
+        if tuple(x.shape[:2]) != (1, rows):
+            raise RuntimeError(f"{where}: layer {i // len(MESH_LM_LINEARS)} {a}/{lin} ran on "
+                               f"rows {tuple(x.shape)}")
+        if not torch.equal(y, w):
+            raise RuntimeError(f"{where}: layer {i // len(MESH_LM_LINEARS)} {a}/{lin}: the rank's "
+                               f"rows differ from the single-process kernel's (max |d| "
+                               f"{float((y - w).abs().max()):.3g})")
+    del calls, want_rows
+    loc, part = logits.to_local(), local_part(want, logits)
+    scale = float(want.abs().max())
+    err = float((loc - part).abs().max())
+    if not bool(torch.isfinite(loc).all()) or not torch.allclose(loc, part, rtol=1e-4,
+                                                                  atol=1e-4 * scale):
+        raise RuntimeError(f"{where}: logits max |d| {err:.3g}, max |logit| {scale:.3g}")
+    del want, part, logits, loc
+
+    def timed(fn) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    single_ms = timed(lambda: api.forward(cfg, full, {"tokens": tokens}))
+    ops.reset_launch_counts()
+    mesh_ms = timed(lambda: step(params, batch))
+    n_timed = ops.launch_counts()["binary_matmul"]
+    if n_timed != MESH_LM_PER_STEP:
+        raise RuntimeError(f"{where}: the timed pass made {n_timed} launches")
+    return {"launches": n + n_timed, "rows": rows, "linears_equal": MESH_LM_PER_STEP,
+            "logit_err": err / scale, "ms": mesh_ms, "single_ms": single_ms}
+
+
+@contextlib.contextmanager
+def recorded_compress(records: list):
+    """``core.compress.compress_leaf`` keeping, per leaf, a copy of its
+    reconstruction (the optimizer's clip scales the one it is given in
+    place), its alphas and its input ``g + e`` (a DTensor leaf's: the
+    rank's shards)."""
+    from repro_torch.core import compress as gcomp
+
+    real = gcomp.compress_leaf
+
+    def leaf(g, e, M):
+        recon, resid, alphas = real(g, e, M)
+        records.append({"recon": pl.local(recon).clone(), "alphas": alphas,
+                        "target": pl.local(g).to(torch.float32) + pl.local(e)})
+        return recon, resid, alphas
+    gcomp.compress_leaf = leaf
+    try:
+        yield
+    finally:
+        gcomp.compress_leaf = real
+
+
+def near_sign_change(target, alphas, diff) -> torch.Tensor:
+    """Where the residual of ``target`` at some level lies within
+    MESH_COMPRESS_NEAR·alpha of 0, or within ``diff`` (the other side's
+    input's distance from this one) of 0: there the two sides may take
+    different signs."""
+    r = target
+    near = torch.zeros(r.shape, dtype=torch.bool, device=r.device)
+    for a in alphas:
+        near |= r.abs() <= MESH_COMPRESS_NEAR * a + diff
+        r = r - a * torch.where(r >= 0, 1.0, -1.0)
+    return near
+
+
+def compressed_case(dev, meshes: dict) -> dict:
+    """14f: 14c's 2-layer cut, dense, SGD with momentum, one step with
+    binary gradient compression (MESH_COMPRESS_M levels) at 2x1 and one
+    at 1x2 against one single-process compressed step from the same
+    params and batch.  Per leaf: the alphas within rtol
+    MESH_COMPRESS_TOL[0]; the rank's shard of the reconstructed gradient
+    within MESH_COMPRESS_TOL[0]·sum(alpha) of the same shard of
+    single-process's (every sign the same), except where the
+    single-process residual at some level lay within
+    MESH_COMPRESS_NEAR·alpha of 0, or within the two sides' own gradient
+    difference at that element of 0 (:func:`near_sign_change`: a sum in
+    another order may take the other sign there; counted, with the signs
+    that did differ); elsewhere the rank's update (params after the step)
+    and error state within MESH_COMPRESS_TOL[1] of their own L2.  (On the
+    card the mesh's gradient differs from single-process's by up to ~1e-4
+    of a leaf in L2, 14c's dense gate measures it, and by a few 1e-3
+    relative at single elements: more than MESH_COMPRESS_NEAR·alpha.)
+    Every comparison is shard against shard: nothing is gathered."""
+    from repro_torch.core import compress as gcomp
+    from repro_torch.optim import sgd
+
+    cfg = mesh_train_config()
+    cfg = cfg.replace(quant=cfg.quant.replace(mode="dense"))
+    opt = sgd(MESH_TRAIN_LR)
+    rtol, l2_rtol = MESH_COMPRESS_TOL
+
+    def one_step(mesh):
+        state = train_steps.init_train_state(cfg, opt, device=dev, mesh=mesh)
+        state["grad_comp"] = gcomp.init_state(state["params"])
+        fn = train_steps.build_train_step(cfg, opt, grad_compress_M=MESH_COMPRESS_M, mesh=mesh)
+        records = []
+        t0 = time.time()
+        with recorded_compress(records):
+            state, met = fn(state, SyntheticTokens(cfg.vocab, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH,
+                                                   device=dev).next_batch())
+        torch.cuda.synchronize()
+        return state, float(met["loss"]), records, time.time() - t0
+
+    ref, ref_loss, ref_rec, ref_s = one_step(None)
+    out = {"ref_loss": ref_loss, "ref_s": ref_s}
+    # the records come in the tree's insertion order, tree_leaves in sorted order
+    order = iter(range(len(ref_rec)))
+    by_leaf = cm.tree_leaves(cm.tree_map(lambda _: next(order), ref["params"]))
+    # the reference waits on the host (each rank holds one; on the card two
+    # whole copies beside the mesh steps' state run the card out of memory)
+    ref = [[t.cpu() for t in cm.tree_leaves(tree)] for tree in
+           (ref["params"], ref["grad_comp"].error, ref["opt_state"]["vel"])]
+    ref_rec = [{k: v.cpu() for k, v in ref_rec[j].items()} for j in by_leaf]
+    torch.cuda.empty_cache()
+
+    def sq_over_shards(x, like) -> float:
+        return float(pl.sum_over_shards(torch.linalg.vector_norm(x) ** 2, like))
+
+    for shape in ((2, 1), (1, 2)):
+        mesh = meshes[shape]
+        state, loss, rec, secs = one_step(mesh)
+        where = f"mesh train compressed {shape[0]}x{shape[1]}"
+        if len(rec) != len(ref_rec) or not np.isclose(loss, ref_loss, rtol=1e-4):
+            raise RuntimeError(f"{where}: {len(rec)} leaves vs {len(ref_rec)}, loss {loss} vs "
+                               f"{ref_loss}")
+        leaves = zip([rec[k] for k in by_leaf], ref_rec, cm.tree_leaves(state["params"]),
+                     cm.tree_leaves(state["grad_comp"].error), *ref)
+        flagged = by_alpha = flipped = beyond = n_elems = 0
+        worst = {"alpha": 0.0, "input": 0.0, "update": 0.0, "error": 0.0}
+        for i, (m, r, p, e, p_ref, e_ref, v_ref) in enumerate(leaves):
+            def mine(t):        # the host reference's part on this rank, on the card
+                return local_part(t, p).to(dev)
+            alphas = r["alphas"].to(dev)
+            a_err = float(((m["alphas"] - alphas).abs() / alphas.abs()).max())
+            worst["alpha"] = max(worst["alpha"], a_err)
+            target = mine(r["target"])
+            diff = (m["target"] - target).abs()
+            near_alpha = near_sign_change(target, alphas, 0)
+            keep = ~near_sign_change(target, alphas, diff)
+            worst["input"] = max(worst["input"], (sq_over_shards(diff, p) / max(
+                sq_over_shards(target, p), 1e-60)) ** 0.5)
+            del diff
+            got, want = m["recon"], mine(r["recon"])
+            # recon = sum_l b_l·alpha_l: with every sign the same it moves by
+            # at most rtol·sum(alpha) (a sign taken otherwise moves it by
+            # 2·alpha_l); a relative bound would fail where b_1 = -b_2 makes
+            # it alpha_1 - alpha_2
+            atol = rtol * float(alphas.sum())
+            d = (got - want).abs_()
+            flips = d > atol
+            if a_err > rtol or bool((flips & keep).any()):
+                j = int(torch.argmax(d.masked_fill_(~keep, 0).flatten()))
+                raise RuntimeError(
+                    f"{where}: leaf {i} {tuple(p.shape)}: alphas {alphas.tolist()} vs "
+                    f"{m['alphas'].tolist()} ({a_err:.3g} apart), recon max |d| "
+                    f"{float(d.flatten()[j]):.3g} at {int((flips & keep).sum())} elements; "
+                    f"the worst: recon {float(got.flatten()[j])} vs {float(want.flatten()[j])}, "
+                    f"g + e {float(m['target'].flatten()[j])} vs {float(target.flatten()[j])}")
+            del d, want, target
+            flagged += int(pl.sum_over_shards((~keep).sum(), p))
+            by_alpha += int(pl.sum_over_shards(near_alpha.sum(), p))
+            flipped += int(pl.sum_over_shards(flips.sum(), p))
+            beyond += int(pl.sum_over_shards((flips & ~near_alpha).sum(), p))
+            del flips, near_alpha
+            n_elems += p.numel()
+            for name, x, x_ref, own in (("update", pl.local(p), p_ref, v_ref),
+                                        ("error", pl.local(e), e_ref, e_ref)):
+                err = sq_over_shards((x - mine(x_ref)).masked_fill_(~keep, 0), p) ** 0.5
+                size = sq_over_shards(mine(own).masked_fill_(~keep, 0), p) ** 0.5
+                if name == "update":        # SGD's first step moves a param by lr·vel
+                    size *= MESH_TRAIN_LR
+                ratio = err / max(size, 1e-30)
+                worst[name] = max(worst[name], ratio)
+                if ratio > l2_rtol:
+                    raise RuntimeError(f"{where}: leaf {i} {tuple(p.shape)}: {name} {ratio:.3g} "
+                                       f"of its own L2 from single-process")
+        out[f"{shape[0]}x{shape[1]}"] = {"loss": loss, "flagged": flagged, "by_alpha": by_alpha,
+                                         "flipped": flipped, "flipped_beyond_alpha": beyond,
+                                         "elements": n_elems,
+                                         "worst": worst, "seconds": secs}
+        del state, rec
+        torch.cuda.empty_cache()
+    return out
+
+
 def mesh_lm_rank(rank: int, world: int, ckpt_dir: str, runs, device: str) -> dict:
     """One rank of 14b-d: the packed gemma-2b restored whole onto the card,
     each mesh of ``runs``' decode steps (fp32 in its layouts; bf16 too at
@@ -3598,6 +3852,11 @@ def mesh_lm_rank(rank: int, world: int, ckpt_dir: str, runs, device: str) -> dic
         if shape == (1, 2):
             out["prefill"] = prefill_case(cfg, full, mesh, shape, dev)
             out["launches"] += out["prefill"]["launches"]
+        if shape in MESH_SEQ_SHAPES:
+            t0 = time.time()
+            r = out.setdefault("seq", {})[shape] = seq_prefill_case(cfg, full, mesh, shape, dev)
+            r["seconds"] = time.time() - t0
+            out["launches"] += r["launches"]
     if world == 2:
         out["pipeline"] = pipeline_case(cfg, full, lpipe.make_pipeline_mesh(2, device=dev), dev)
         out["launches"] += out["pipeline"]["launches"]
@@ -3608,6 +3867,11 @@ def mesh_lm_rank(rank: int, world: int, ckpt_dir: str, runs, device: str) -> dic
         t0 = time.time()
         out["train"] = train_case(dev, meshes, str(Path(ckpt_dir).parent / "train"))
         out["train"]["seconds"] = time.time() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        out["compressed"] = compressed_case(dev, meshes)
+        out["compressed"]["seconds"] = time.time() - t0
     return out
 
 
@@ -3669,6 +3933,15 @@ def mesh_lm_phase(dev, out_dir: Path, smi: str, after_timing) -> dict:
             print(f"phase 14b: prefill of {MESH_LM_PREFILL[0]} x {MESH_LM_PREFILL[1]} tokens at "
                   f"1x2: {r['launches']} launches per rank, {r['linears_equal']} linears "
                   f"torch.equal, logits {r['logit_err']:.3g}·max|logit| from single-process")
+        for shape, r in per_rank[0].get("seq", {}).items():
+            res[f"seq prefill {shape[0]}x{shape[1]}"] = r
+            print(f"phase 14e: sequence-sharded prefill of 1 x {MESH_SEQ_TOKENS} tokens at "
+                  f"{shape[0]}x{shape[1]} TP-only: {MESH_LM_PER_STEP} launches per rank per pass "
+                  f"on {r['rows']} rows each, {r['linears_equal']} linears torch.equal to the "
+                  f"single-process prefill kernel's rows, logits {r['logit_err']:.3g}·max|logit| "
+                  f"from single-process; rank 0 {r['ms']:.1f} ms vs single-process "
+                  f"{r['single_ms']:.1f} ms (one pass each, CUDA events; all {world} ranks on one "
+                  f"card: says nothing of scaling); case {r['seconds']:.1f} s; {smi}")
         if "train" in per_rank[0]:
             tr = res["train"] = per_rank[0]["train"]
             dn = tr["dense"]
@@ -3687,6 +3960,24 @@ def mesh_lm_phase(dev, out_dir: Path, smi: str, after_timing) -> dict:
                   f"params {b['param_err_over_update']:.3g} (worst leaf "
                   f"{b['worst_leaf']:.3g}), {b['seconds']:.1f} s; losses {b['losses']} vs "
                   f"{tr['ref_losses']}")
+            cp = res["compressed"] = per_rank[0]["compressed"]
+            for k in ("2x1", "1x2"):
+                c = cp[k]
+                print(f"phase 14f: gemma-2b cut to {MESH_TRAIN_DEPTH} layers, dense, gradient "
+                      f"compression M={MESH_COMPRESS_M}, one step at {k} against single-process: "
+                      f"alphas {c['worst']['alpha']:.3g} apart at worst (rtol "
+                      f"{MESH_COMPRESS_TOL[0]:g}); gradient {c['worst']['input']:.3g} of its own "
+                      f"L2 from single-process at the worst leaf; {c['flagged']} of "
+                      f"{c['elements']} elements near a sign change ({c['by_alpha']} within "
+                      f"{MESH_COMPRESS_NEAR:g}·alpha, the rest within the gradients' own "
+                      f"difference), {c['flipped']} of them took the other sign "
+                      f"({c['flipped_beyond_alpha']} outside {MESH_COMPRESS_NEAR:g}·alpha); "
+                      f"elsewhere recon within {MESH_COMPRESS_TOL[0]:g}·sum(alpha), "
+                      f"update {c['worst']['update']:.3g} and error {c['worst']['error']:.3g} of "
+                      f"their own L2 at the worst leaf (gate {MESH_COMPRESS_TOL[1]:g}); loss "
+                      f"{c['loss']} vs {cp['ref_loss']}; step {c['seconds']:.1f} s (single-process "
+                      f"{cp['ref_s']:.1f} s)")
+            print(f"phase 14f: {cp['seconds']:.1f} s")
             p = res["pipeline"] = per_rank[0]["pipeline"]
             print(f"phase 14d: GPipe, 2 stages of one gemma-2b layer, {MESH_PIPE_MICRO} "
                   f"microbatches of {MESH_PIPE_X}: {p['err']:.3g}·max|y| from reference_apply, "
@@ -3694,7 +3985,11 @@ def mesh_lm_phase(dev, out_dir: Path, smi: str, after_timing) -> dict:
         print(f"phase 14: world {world}: {time.time() - t1:.1f} s (rank 0's whole restore of the "
               f"packed checkpoint {per_rank[0]['restore_s']:.1f} s"
               + (f", 14c {per_rank[0]['train']['seconds']:.1f} s" if "train" in per_rank[0]
-                 else "") + ")")
+                 else "")
+              + "".join(f", 14e {k[0]}x{k[1]} {v['seconds']:.1f} s"
+                        for k, v in per_rank[0].get("seq", {}).items())
+              + (f", 14f {per_rank[0]['compressed']['seconds']:.1f} s"
+                 if "compressed" in per_rank[0] else "") + ")")
     tmp.cleanup()
     res["seconds"] = time.time() - t0 - res["counter"]["seconds"]
     print(f"phase 14: {res['seconds']:.1f} s without 15b (budget {MESH_LM_BUDGET_S} s); "

@@ -5,9 +5,11 @@ the local devices): ``world`` processes spawned with
 ``torch.multiprocessing``, each joined to one ``torch.distributed`` group
 through a ``file://`` store in a fresh temporary directory (no TCP port to
 collide with a neighbour), each running ``fn(rank, world, *args)``.  The
-ranks may share one card (``device="cuda:0"`` with ``backend="gloo"``) or
-run on the CPU.  Each rank takes an equal share of the host's cores as
-its intra-op threads.  Ranks on a card over gloo run ``fn`` inside
+ranks share one card by default (``device="cuda"`` with ``backend="gloo"``:
+NCCL refuses two ranks on one device), and ``run_local`` raises before it
+spawns when there is no card; ``device="cpu"`` runs them on the CPU.  Each
+rank takes an equal share of the host's cores as its intra-op threads.
+Ranks on a card over gloo run ``fn`` inside
 ``sharding.placement.gloo_gathers_through_host``.
 """
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch import resolve_device
 from repro_torch.sharding import placement as pl
 
 
@@ -53,7 +56,7 @@ def _rank_main(rank: int, world: int, init: str, backend: str, device: str,
         raise
 
 
-def run_local(world: int, fn, *args, backend: str = "gloo", device: str = "cpu",
+def run_local(world: int, fn, *args, backend: str = "gloo", device: str = "cuda",
               timeout_s: float = 300.0) -> list:
     """Run ``fn(rank, world, *args)`` on ``world`` spawned ranks of one
     process group; returns each rank's result, by rank.
@@ -63,8 +66,10 @@ def run_local(world: int, fn, *args, backend: str = "gloo", device: str = "cpu",
     would go by shared memory, which its rank frees when it exits).  A rank that
     raises, dies or outlasts ``timeout_s`` makes this raise with its
     traceback; the other ranks, which may be waiting in a collective, are
-    then terminated.
+    then terminated.  ``device`` is every rank's device, the card unless
+    ``"cpu"`` is given (``resolve_device``: raises without a card).
     """
+    device = str(resolve_device(device))
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     out, errors = {}, {}

@@ -30,9 +30,16 @@ each batch is placed by ``batch_pspecs`` (rows over the data axes), the
 activations follow the logical-axis rules ``install_rules`` sets, the
 gradients land on their params' placements (a reduction over the data
 axes: the mean over the global batch), and the update runs on each rank's
-shard.  Every rank calls the step with the same global batch.  Left out on
-the mesh: ``grad_compress_M`` and the sequence-sharded (``seq_sharded``)
-rules.
+shard.  Every rank calls the step with the same global batch.  With
+``grad_compress_M`` the error state (``grad_comp``) sits on the params'
+placements and the compression runs on each rank's shards, its alphas
+global means (``core/compress.py``).  With ``seq_sharded`` the rules put
+the sequence on ``"data"`` (the JAX package's sequence parallelism for a
+batch that does not divide the data axes): the tokens, the residual stream
+and every linear's rows are split on the sequence, attention gathers it
+whole; a batch that does divide them names ``"data"`` twice in the
+residual's constraint, which ``placement.spec_placements`` refuses with a
+``ValueError``, as JAX refuses it.
 
 The dry run's entries, ``lower_train_step`` and ``lower_serve_step``, build
 the state (from ``api.param_shapes``, placed by ``param_pspecs``, and
@@ -64,23 +71,34 @@ def install_rules(cfg: ArchConfig, mesh, *, seq_sharded: bool = False) -> None:
                       shr.axis_sizes(mesh))
 
 
-def train_state_specs(cfg: ArchConfig, mesh, optimizer: Optimizer) -> dict:
-    """PartitionSpec tree for {params, opt_state, step} (FSDP+TP); ``mesh``
-    a DeviceMesh or ``{axis: size}``."""
+def train_state_specs(cfg: ArchConfig, mesh, optimizer: Optimizer, *,
+                      grad_compress_M: int = 0) -> dict:
+    """PartitionSpec tree for {params, opt_state, step} (FSDP+TP), and
+    ``grad_comp`` (the params' specs) with ``grad_compress_M``; ``mesh`` a
+    DeviceMesh or ``{axis: size}``."""
     param_shapes = api.param_shapes(cfg)
     pspecs = shr.param_pspecs(cfg, param_shapes, mesh)
     # optimizer state mirrors the param tree per moment buffer
-    return {"params": pspecs, "opt_state": {k: pspecs for k in optimizer.init(param_shapes)},
-            "step": shr.P()}
+    out = {"params": pspecs, "opt_state": {k: pspecs for k in optimizer.init(param_shapes)},
+           "step": shr.P()}
+    if grad_compress_M:
+        out["grad_comp"] = gc.CompressionState(error=pspecs)
+    return out
 
 
-def train_state_shardings(cfg: ArchConfig, mesh, optimizer: Optimizer) -> dict:
-    """The ``NamedSharding`` of every param and moment, None for the host
-    ``step``: what ``CheckpointManager.restore(shardings=)`` and
-    ``Trainer(state_shardings=)`` take."""
-    specs = train_state_specs(cfg, mesh, optimizer)
-    return {"params": shr.param_placements(specs["params"], mesh),
-            "opt_state": shr.param_placements(specs["opt_state"], mesh), "step": None}
+def train_state_shardings(cfg: ArchConfig, mesh, optimizer: Optimizer, *,
+                          grad_compress_M: int = 0) -> dict:
+    """The ``NamedSharding`` of every param, moment (and error leaf, with
+    ``grad_compress_M``), None for the host ``step``: what
+    ``CheckpointManager.restore(shardings=)`` and ``Trainer(state_shardings=)``
+    take."""
+    specs = train_state_specs(cfg, mesh, optimizer, grad_compress_M=grad_compress_M)
+    out = {"params": shr.param_placements(specs["params"], mesh),
+           "opt_state": shr.param_placements(specs["opt_state"], mesh), "step": None}
+    if grad_compress_M:
+        out["grad_comp"] = gc.CompressionState(
+            error=shr.param_placements(specs["grad_comp"].error, mesh))
+    return out
 
 
 def init_train_state(cfg: ArchConfig, optimizer: Optimizer, *, seed: int = 0,
@@ -111,12 +129,13 @@ def loss_and_grads(fn, params, *args):
     return tree_map(lambda p: by_id[id(p)], live), {k: v.detach() for k, v in metrics.items()}
 
 
-def shard_batch(cfg: ArchConfig, batch: dict, mesh) -> dict:
+def shard_batch(cfg: ArchConfig, batch: dict, mesh, *, seq_sharded: bool = False) -> dict:
     """A global batch (the same on every rank) placed by ``batch_pspecs``."""
-    return shr.distribute_params(batch, shr.batch_pspecs(cfg, batch, mesh), mesh)
+    return shr.distribute_params(
+        batch, shr.batch_pspecs(cfg, batch, mesh, seq_sharded=seq_sharded), mesh)
 
 
-def _grads_fn(cfg: ArchConfig, microbatch: int | None, mesh):
+def _grads_fn(cfg: ArchConfig, microbatch: int | None, mesh, seq_sharded: bool = False):
     """``grads_of(params, batch) -> (grads, metrics)`` of the train step."""
     def loss_fn(params, batch):
         return api.loss_fn(cfg, params, batch)
@@ -127,9 +146,10 @@ def _grads_fn(cfg: ArchConfig, microbatch: int | None, mesh):
         # forward and backward over DTensors (the plain tensors the model
         # makes, masks and positions, join as replicated); each gradient
         # moved to its param's placements, the metrics gathered whole
-        install_rules(cfg, mesh)
+        install_rules(cfg, mesh, seq_sharded=seq_sharded)
         with implicit_replication():
-            grads, metrics = loss_and_grads(loss_fn, params, shard_batch(cfg, batch, mesh))
+            grads, metrics = loss_and_grads(loss_fn, params,
+                                            shard_batch(cfg, batch, mesh, seq_sharded=seq_sharded))
             grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
                              if pl.is_dtensor(p) else g, grads, params)
         return grads, {k: pl.full(v) for k, v in metrics.items()}
@@ -166,15 +186,17 @@ def _update(optimizer: Optimizer, state: dict, grads, grad_compress_M: int = 0) 
 
 
 def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
-                     microbatch: int | None = None, grad_compress_M: int = 0, mesh=None):
+                     microbatch: int | None = None, grad_compress_M: int = 0, mesh=None,
+                     seq_sharded: bool = False):
     """Returns ``step_fn(state, batch) -> (state, metrics)``, the state
     updated in place.  ``microbatch`` > 1 splits the batch's rows into that
-    many slices and averages their fp32 gradients and metrics.  With
-    ``mesh`` the state is ``init_train_state(..., mesh=mesh)``'s and the
-    batch the global one."""
-    if mesh is not None and grad_compress_M:
-        raise NotImplementedError("binary gradient compression on a mesh is not ported")
-    grads_of = _grads_fn(cfg, microbatch, mesh)
+    many slices and averages their fp32 gradients and metrics.
+    ``grad_compress_M`` > 0 compresses the gradients first; the state then
+    holds ``grad_comp`` (``core.compress.init_state(state["params"])``).
+    With ``mesh`` the state is ``init_train_state(..., mesh=mesh)``'s and
+    the batch the global one; ``seq_sharded`` installs the
+    sequence-sharded rules."""
+    grads_of = _grads_fn(cfg, microbatch, mesh, seq_sharded)
 
     def step_fn(state, batch):
         grads, metrics = grads_of(state["params"], batch)
@@ -186,24 +208,19 @@ def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
     return step_fn
 
 
-def _no_seq_sharding(seq_sharded: bool) -> None:
-    if seq_sharded:
-        raise NotImplementedError("the sequence-sharded rules are not ported to the mesh steps")
-
-
 def lower_train_step(cfg: ArchConfig, mesh, optimizer: Optimizer, batch_specs, *,
                      microbatch: int | None = None, seq_sharded: bool = False):
     """Dry-run entry: the mesh train step over ``meta`` DTensors (the
     state from ``api.param_shapes``, FSDP+TP, and ``optimizer.init`` over
     it; ``batch_specs`` the global batch of ``configs/base.input_specs``),
     as a ``cost_analysis.Lowered``.  ``microbatch`` > 1 accumulates
-    gradients over slices of the batch, as ``build_train_step`` does."""
-    _no_seq_sharding(seq_sharded)
+    gradients over slices of the batch, as ``build_train_step`` does;
+    ``seq_sharded`` installs the sequence-sharded rules."""
     specs = train_state_specs(cfg, mesh, optimizer)
     params = shr.distribute_params(api.param_shapes(cfg), specs["params"], mesh)
     state = {"params": params, "opt_state": optimizer.init(params),
              "step": torch.zeros((), dtype=torch.int32)}
-    grads_of = _grads_fn(cfg, microbatch, mesh)
+    grads_of = _grads_fn(cfg, microbatch, mesh, seq_sharded)
 
     def step_fn(state, batch):
         grads, metrics = grads_of(state["params"], batch)
@@ -211,7 +228,7 @@ def lower_train_step(cfg: ArchConfig, mesh, optimizer: Optimizer, batch_specs, *
         return state, metrics
 
     return cost_analysis.Lowered(step_fn, (state, batch_specs), cost_analysis.local_bytes(
-        (state, shard_batch(cfg, batch_specs, mesh))))
+        (state, shard_batch(cfg, batch_specs, mesh, seq_sharded=seq_sharded))))
 
 
 # ---------------------------------------------------------------------------
@@ -226,27 +243,30 @@ class ServeStep:
     ``cfg.quant.mode == "binary"``) by ``param_pspecs``, FSDP over the data
     axes or, with ``fsdp_params=False``, TP-only; ``shard_batch`` places
     ``{tokens, pos, cache}`` (decode) or ``{tokens}`` (prefill) by
-    ``batch_pspecs``.  Calling it runs ``api.decode_step`` -> (logits,
-    cache), the cache written in place on each rank's shard, or
-    ``api.forward`` -> logits; the logits are a DTensor split on
-    ``"vocab"``.  Every binary linear runs the kernel on the rank's column
-    shard (``core/binlinear.py``)."""
+    ``batch_pspecs`` (with ``seq_sharded``, the sequence split on
+    ``"data"`` where the batch does not divide the data axes).  Calling it
+    runs ``api.decode_step`` -> (logits, cache), the cache written in place
+    on each rank's shard, or ``api.forward`` -> logits; the logits are a
+    DTensor split on ``"vocab"``.  Every binary linear runs the kernel on
+    the rank's column shard (``core/binlinear.py``)."""
 
-    def __init__(self, cfg: ArchConfig, mesh, kind: str, fsdp_params: bool):
+    def __init__(self, cfg: ArchConfig, mesh, kind: str, fsdp_params: bool,
+                 seq_sharded: bool = False):
         if kind not in ("decode", "prefill"):
             raise ValueError(f"unknown serve step kind {kind!r}")
         self.cfg, self.mesh, self.kind, self.fsdp_params = cfg, mesh, kind, fsdp_params
+        self.seq_sharded = seq_sharded
 
     def shard_params(self, params):
         specs = shr.param_pspecs(self.cfg, params, self.mesh, fsdp=self.fsdp_params)
         return shr.distribute_params(params, specs, self.mesh)
 
     def shard_batch(self, batch: dict) -> dict:
-        return shard_batch(self.cfg, batch, self.mesh)
+        return shard_batch(self.cfg, batch, self.mesh, seq_sharded=self.seq_sharded)
 
     @torch.no_grad()
     def __call__(self, params, batch):
-        install_rules(self.cfg, self.mesh)
+        install_rules(self.cfg, self.mesh, seq_sharded=self.seq_sharded)
         with implicit_replication():
             if self.kind == "decode":
                 return api.decode_step(self.cfg, params, batch)
@@ -254,10 +274,11 @@ class ServeStep:
 
 
 def build_serve_step(cfg: ArchConfig, mesh, *, kind: str = "decode",
-                     fsdp_params: bool | None = None) -> ServeStep:
+                     fsdp_params: bool | None = None, seq_sharded: bool = False) -> ServeStep:
     """The serve step of ``cfg`` on ``mesh``; ``fsdp_params`` defaults to
     ``cfg.serve_fsdp``."""
-    return ServeStep(cfg, mesh, kind, cfg.serve_fsdp if fsdp_params is None else fsdp_params)
+    return ServeStep(cfg, mesh, kind, cfg.serve_fsdp if fsdp_params is None else fsdp_params,
+                     seq_sharded)
 
 
 def lower_serve_step(cfg: ArchConfig, mesh, batch_specs, *, kind: str = "decode",
@@ -269,9 +290,9 @@ def lower_serve_step(cfg: ArchConfig, mesh, batch_specs, *, kind: str = "decode"
     (``api.param_shapes(cfg, qc=cfg.quant)``, the paper's deployment form),
     each binary linear through ``binary_matmul``'s meta route.
     ``fsdp_params=False`` shards params TP-only (replicated over the DP
-    axes)."""
-    _no_seq_sharding(seq_sharded)
-    step = build_serve_step(cfg, mesh, kind=kind, fsdp_params=fsdp_params)
+    axes); ``seq_sharded`` installs the sequence-sharded rules."""
+    step = build_serve_step(cfg, mesh, kind=kind, fsdp_params=fsdp_params,
+                            seq_sharded=seq_sharded)
     qc = cfg.quant if cfg.quant.mode == "binary" else None
     params = step.shard_params(api.param_shapes(cfg, qc=qc))
     batch = step.shard_batch(batch_specs)

@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma_2b --reduced \\
         --steps 50 --checkpoint-dir checkpoints/gemma_reduced
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
-        --arch gemma_2b --reduced                         # a 4x1 mesh
+        --arch gemma_2b --reduced --grad-compress-M 2     # a 4x1 mesh
 
 Trains a dense config on the synthetic token pipeline through
 ``launch/steps.py`` and ``runtime/trainer.py``: AdamW on a warmup-cosine
@@ -15,8 +15,9 @@ that sets ``WORLD_SIZE`` > 1 (``torchrun``), every rank joins one process
 group (NCCL with one card per rank, gloo on the CPU; a group the caller
 already started is used as it is) and trains on ``make_host_mesh()``, a
 ``(world, 1)`` (data, model) mesh, as the JAX launcher does: state sharded
-by the rules, resume onto the mesh through ``Trainer(state_shardings=)``.
-Returns the Trainer's report.
+by the rules (the compression's error state on the params' placements),
+resume onto the mesh through ``Trainer(state_shardings=)``.  Returns the
+Trainer's report.
 """
 from __future__ import annotations
 
@@ -29,11 +30,29 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import base as cb
+from repro_torch.core import compress as gcomp
 from repro_torch.data.tokens import SyntheticTokens
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+
+def launcher_mesh(dev: torch.device):
+    """Under a launcher that sets ``WORLD_SIZE`` > 1 (``torchrun``): this
+    rank's device (``LOCAL_RANK``'s card when ``dev`` is a card), the
+    process group joined (NCCL on cards, gloo on the CPU; one the caller
+    started is used as it is) and ``make_host_mesh()`` over it.  Returns
+    ``(mesh, dev, owns_group)``; ``(None, dev, False)`` in one process."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None, dev, False
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    owns_group = not dist.is_initialized()
+    if owns_group:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return make_host_mesh(device=dev), dev, owns_group
 
 
 def main(argv=None):
@@ -53,16 +72,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
-    mesh, owns_group = None, False
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        if dev.type == "cuda":
-            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
-            torch.cuda.set_device(dev)
-        if not dist.is_initialized():
-            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
-            owns_group = True
-        mesh = make_host_mesh(device=dev)
+    mesh, dev, owns_group = launcher_mesh(resolve_device(args.device))
     cfg = cb.get_config(args.arch)
     if args.reduced:
         cfg = cb.reduced(cfg)
@@ -72,14 +82,12 @@ def main(argv=None):
     optimizer = adamw(warmup_cosine(args.lr, 10, args.steps))
     state = steps_mod.init_train_state(cfg, optimizer, device=dev, mesh=mesh)
     if args.grad_compress_M:
-        from repro_torch.core import compress as gcomp
-
         state["grad_comp"] = gcomp.init_state(state["params"])
     step_fn = steps_mod.build_train_step(cfg, optimizer,
                                          grad_compress_M=args.grad_compress_M, mesh=mesh)
     data = SyntheticTokens(cfg.vocab, args.seq, args.batch, device=dev)
-    shardings = (None if mesh is None
-                 else steps_mod.train_state_shardings(cfg, mesh, optimizer))
+    shardings = (None if mesh is None else steps_mod.train_state_shardings(
+        cfg, mesh, optimizer, grad_compress_M=args.grad_compress_M))
     trainer = Trainer(step_fn, state, data, TrainerConfig(
         total_steps=args.steps, checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir), state_shardings=shardings)

@@ -183,15 +183,16 @@ def decode_step(cfg: ArchConfig, params, batch):
 
 
 def _ssm_decode(params, cfg: ArchConfig, tokens, cache, update_mask=None):
-    """Each layer's cache slice is a view of the stacked cache, written in
-    place by ``mamba2_decode``."""
+    """Each layer's cache slice is written in place by ``mamba2_decode``
+    (``cm.cache_layer``: a view of the stacked cache, or written back
+    where it cannot be one)."""
     x = cm.embed(params["embed"], tokens).to(cfg.torch_dtype)
     for i in range(cfg.n_layers):
         cfg_i = cm.layer_quant_cfg(cfg, i)
         layer = cm.tree_index(params["mamba_layers"], i)
         h = cm.rms_norm(layer["norm"], x, cfg_i.norm_eps)
-        d, _ = ssm_mod.mamba2_decode(layer["block"], h, cfg_i, cm.tree_index(cache, i),
-                                     update_mask=update_mask)
+        with cm.cache_layer(cache, i) as c:
+            d, _ = ssm_mod.mamba2_decode(layer["block"], h, cfg_i, c, update_mask=update_mask)
         x = x + d
     x = cm.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return cm.unembed(params["embed"], x), cache

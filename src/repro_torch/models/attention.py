@@ -141,6 +141,9 @@ def attn_forward(params, x, cfg: ArchConfig, *, positions=None, mask=None):
         o = torch.cat(outs, dim=1).to(x.dtype)
     else:
         o = _attend(q, k, v, mask[None, None]).to(x.dtype)
+    # back on the residual's rows: under the sequence-sharded rules wo runs
+    # on the rank's own sequence rows (a slice; a no-op otherwise)
+    o = cm.shard(o, "batch", "seq", None)
     return cm.linear(params["wo"], o, cfg.quant)
 
 
@@ -300,7 +303,7 @@ def _mla_attend(params, x, cfg: ArchConfig, positions, mask):
         mask = cm.causal_mask(S, device=x.device)
     w = torch.softmax(logits.masked_fill(~mask[None, None], NEG_INF), dim=-1).to(x.dtype)
     o = torch.einsum("bhqs,bshd->bqhd", w.to(f32), vl.to(f32))
-    o = back(o.reshape(o.shape[0], S, H * vd).to(x.dtype))
+    o = cm.shard(back(o.reshape(o.shape[0], S, H * vd).to(x.dtype)), "batch", "seq", None)
     return cm.linear(params["wo"], o, cfg.quant), c_kv, k_rope
 
 

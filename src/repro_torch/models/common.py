@@ -19,6 +19,7 @@ no card.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -103,6 +104,17 @@ def tree_leaves(tree) -> list:
 def tree_index(tree, i: int):
     """Entry ``i`` of every stacked ``[L, ...]`` leaf (views, no copy)."""
     return tree_map(lambda t: t[i], tree)
+
+
+@contextlib.contextmanager
+def cache_layer(tree, i: int):
+    """Entry ``i`` of every stacked cache leaf, for a decode step to write
+    in place; on exit each entry that is not a view of its stacked leaf (a
+    DTensor split on the stacked dim) is written back
+    (``placement.write_stacked``)."""
+    layer = tree_index(tree, i)
+    yield layer
+    tree_map(lambda t, v: pl.write_stacked(t, i, v), tree, layer)
 
 
 def stack_trees(trees: list):

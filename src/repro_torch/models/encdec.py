@@ -163,7 +163,8 @@ def encdec_decode_step(params, cfg: ArchConfig, tokens, pos, cache):
     for i in range(cfg.n_layers):
         layer = cm.tree_index(params["dec_layers"], i)
         h = cm.rms_norm(layer["ln1"], x, cfg.norm_eps)
-        a, _ = attn.attn_decode(layer["attn"], h, cfg, cm.tree_index(cache["self"], i), pos)
+        with cm.cache_layer(cache["self"], i) as c:
+            a, _ = attn.attn_decode(layer["attn"], h, cfg, c, pos)
         x = x + a
         h = cm.rms_norm(layer["ln_x"], x, cfg.norm_eps)
         x = x + _cross_attend(layer["xattn"], h, (cache["cross_k"][i], cache["cross_v"][i]), cfg)

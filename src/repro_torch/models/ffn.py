@@ -37,5 +37,8 @@ def ffn_forward(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         h = act(cm.linear(params["w_gate"], x, q)) * cm.linear(params["w_up"], x, q)
     else:
         h = _gelu(cm.linear(params["w_up"], x, q))
-    h = cm.shard(h, "batch", None, "ff")
+    # "seq" where the JAX package names None: the same placements unless the
+    # sequence-sharded rules split the sequence, when w_down, like every
+    # linear, runs on the rank's own sequence rows
+    h = cm.shard(h, "batch", "seq", "ff")
     return cm.linear(params["w_down"], h, q)

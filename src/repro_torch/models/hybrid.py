@@ -126,13 +126,12 @@ def hybrid_decode_step(params, cfg: ArchConfig, tokens, pos, cache, update_mask=
         cfg_i = cm.layer_quant_cfg(cfg, i)
         layer = cm.tree_index(params["mamba_layers"], i)
         h = cm.rms_norm(layer["norm"], x, cfg_i.norm_eps)
-        d, _ = ssm_mod.mamba2_decode(layer["block"], h, cfg_i,
-                                     cm.tree_index(cache["mamba"], i), update_mask=update_mask)
+        with cm.cache_layer(cache["mamba"], i) as c:
+            d, _ = ssm_mod.mamba2_decode(layer["block"], h, cfg_i, c, update_mask=update_mask)
         x = x + d
         if _is_point(cfg, i):
-            x, _ = _shared_block_decode(shared, x, x0, cfg_i,
-                                        cm.tree_index(cache["attn"], i // cfg.hybrid_attn_every),
-                                        pos)
+            with cm.cache_layer(cache["attn"], i // cfg.hybrid_attn_every) as c:
+                x, _ = _shared_block_decode(shared, x, x0, cfg_i, c, pos)
     x = cm.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return cm.unembed(params["embed"], x), cache
 

@@ -181,7 +181,7 @@ def _moe_ffn_mesh(params, x, cfg: ArchConfig):
     if S == 1:
         xr = x.redistribute(mesh, [Replicate()] * mesh.ndim)
     else:
-        xr = pl.whole_rows(x)
+        xr = pl.whole_rows(x, batch_only=True)   # a group is a whole sequence
     rows = tuple(p if isinstance(p, Shard) else Replicate() for p in xr.placements)
     xl = xr.to_local()
     xg = xl.reshape(-1, Sg, D)                                      # [G_local, Sg, D]

@@ -233,6 +233,8 @@ def mamba2_decode(params, x: torch.Tensor, cfg: ArchConfig, cache: dict,
     state = old * dA[..., None, None] + (dt[..., None] * xh)[..., None] * Bv[:, :, None, :]
     y = torch.einsum("bhpn,bhn->bhp", state, Cv) + params["D"][None, :, None] * xh
     y = cm.rms_norm_gated(params["norm"], y.reshape(B, d_inner).to(x.dtype), z, cfg.norm_eps)
+    # on the batch's rows (a state placed otherwise makes y whole on them)
+    y = cm.shard(y, "batch", None)
     out = cm.linear(params["out_proj"], y, cfg.quant)[:, None, :]
     new_conv = window[:, 1:].to(cache["conv_state"].dtype)
     if update_mask is not None:

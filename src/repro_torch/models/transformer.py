@@ -67,8 +67,12 @@ def layer_forward(params, x, cfg: ArchConfig, *, positions=None, mask=None):
     x = cm.shard(x, "batch", "seq", None)
     h = cm.rms_norm(params["ln1"], x, cfg.norm_eps)
     fwd = attn.mla_forward if cfg.use_mla else attn.attn_forward
-    return _ffn_block(params, x + fwd(params["attn"], h, cfg, positions=positions,
-                                      mask=mask), cfg)
+    # the residual placed as at the layer's start (whole on "model", where
+    # wo left it split): the FFN's norm then sums each row whole, as
+    # single-process does, not as partial sums over "model"
+    x = cm.shard(x + fwd(params["attn"], h, cfg, positions=positions, mask=mask),
+                 "batch", "seq", None)
+    return _ffn_block(params, x, cfg)
 
 
 def layer_decode(params, x, cfg: ArchConfig, cache, pos):
@@ -214,11 +218,13 @@ def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> d
 
 
 def _decode_stack(stacked, caches, x, cfg: ArchConfig, pos, *, layer0: int = 0):
-    """Each layer's cache slice is a view of the stacked cache, written in
-    place by the attention's decode."""
+    """Each layer's cache slice is written in place by the attention's
+    decode (``cm.cache_layer``: a view of the stacked cache, or written
+    back where it cannot be one)."""
     for i in range(_n_layers(stacked)):
-        x, _ = layer_decode(cm.tree_index(stacked, i), x,
-                            cm.layer_quant_cfg(cfg, layer0 + i), cm.tree_index(caches, i), pos)
+        with cm.cache_layer(caches, i) as c:
+            x, _ = layer_decode(cm.tree_index(stacked, i), x, cm.layer_quant_cfg(cfg, layer0 + i),
+                                c, pos)
     return x, caches
 
 

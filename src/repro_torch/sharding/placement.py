@@ -21,6 +21,8 @@ propagation and works on a rank's local shard:
     (``core/binlinear.py``);
   * :func:`write_rows` — the decode step's in-place cache write, done on
     each rank's shard so the cache keeps its storage and placements;
+    :func:`write_stacked` writes a layer of a stacked cache back where the
+    layer was not a view (its stacked dim split);
   * :func:`batch_local` — attention's operands made whole on every rank
     but their batch rows, and computed on as local tensors: the reshapes
     around its score and value products merge and split the heads and
@@ -179,24 +181,30 @@ def columns(t: DTensor) -> tuple[torch.Tensor, tuple]:
     return t.redistribute(mesh, pl).to_local().contiguous(), pl
 
 
-def row_placements(x: DTensor) -> tuple:
+def row_placements(x: DTensor, *, batch_only: bool = False) -> tuple:
     """Where a linear's input must be for the column-parallel kernel: whole
-    along K (replicated on ``"model"``), its rows left split on the data
-    axes where they are split by the leading (batch) dim."""
+    along K (replicated on ``"model"``), its rows left split on the mesh
+    dims other than ``"model"`` where a leading dim splits them: the batch,
+    or the sequence under the sequence-sharded rules.  ``batch_only``
+    keeps a split of the batch (dim 0) alone."""
     m = model_dim(x.device_mesh)
-    return tuple(p if (i != m and isinstance(p, Shard) and p.dim == 0 and x.ndim > 1)
+    last = 1 if batch_only else x.ndim - 1
+    return tuple(p if (i != m and isinstance(p, Shard) and p.dim < last and x.ndim > 1)
                  else Replicate() for i, p in enumerate(x.placements))
 
 
-def whole_rows(t):
+def whole_rows(t, *, batch_only: bool = False):
     """A DTensor moved to :func:`row_placements` (its rows split as they
-    are over the data axes, every other dim whole); a plain tensor as it
-    is."""
-    return t.redistribute(t.device_mesh, row_placements(t)) if isinstance(t, DTensor) else t
+    are, every other dim whole); a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, row_placements(t, batch_only=batch_only))
 
 
 def rows_local(x, mesh) -> tuple[torch.Tensor, tuple]:
-    """``x`` moved to :func:`row_placements`: (its local rows, placements)."""
+    """``x`` moved to :func:`row_placements`: (its local rows, placements);
+    a split sequence stays split, so the kernel runs on the rank's
+    ``[B, S / d, K]`` rows."""
     x = whole_rows(as_dtensor(x, mesh))
     return x.to_local(), x.placements
 
@@ -326,6 +334,26 @@ def write_rows(cache, slot: torch.Tensor, rows: torch.Tensor) -> None:
     s = s.clamp(0, c.shape[1] - 1)
     keep = inside.reshape((-1,) + (1,) * (r.ndim - 1))
     c[b, s] = torch.where(keep, r, c[b, s])
+
+
+def write_stacked(t, i: int, value) -> None:
+    """``t[i] = value`` in place, where ``value`` is the ``t[i]`` taken
+    earlier and written since, and is not a view of ``t``: a DTensor whose
+    stacked ``[L, ...]`` dim is split (the cache rules match the batch dim
+    by size, so a layer count equal to the batch takes the batch's split),
+    whose ``t[i]`` DTensor makes from a gathered copy.  Each rank holding
+    layer ``i`` writes its own shard; anything else (a plain tensor, an
+    unsplit stacked dim: ``t[i]`` was a view) is left as it is."""
+    if not isinstance(t, DTensor) or not any(isinstance(p, Shard) and p.dim == 0
+                                             for p in t.placements):
+        return
+    mesh = t.device_mesh
+    layer_pl = [Replicate() if isinstance(p, Shard) and p.dim == 0
+                else Shard(p.dim - 1) if isinstance(p, Shard) else p for p in t.placements]
+    v = as_dtensor(value, mesh).redistribute(mesh, layer_pl).to_local()
+    loc, off = t.to_local(), _local_offset(t)[0]
+    if off <= i < off + loc.shape[0]:
+        loc[i - off].copy_(v)
 
 
 def sum_over_shards(value: torch.Tensor, like) -> torch.Tensor:

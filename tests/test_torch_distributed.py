@@ -232,13 +232,14 @@ def mobilenet(tmp_path_factory):
 @pytest.fixture(scope="module")
 def world2(mobilenet):
     program, ckpt, inputs, images = mobilenet
-    return tdist.run_local(2, ranks.both, ckpt, EXEC, [(2, 1), (1, 2)], inputs, images)
+    return tdist.run_local(2, ranks.both, ckpt, EXEC, [(2, 1), (1, 2)], inputs, images,
+                           device="cpu")
 
 
 @pytest.fixture(scope="module")
 def world4(mobilenet):
     program, ckpt, inputs, _ = mobilenet
-    return tdist.run_local(4, ranks.sharded, ckpt, EXEC, [(2, 2)], inputs)
+    return tdist.run_local(4, ranks.sharded, ckpt, EXEC, [(2, 2)], inputs, device="cpu")
 
 
 def _cases(mobilenet, per_rank):
@@ -324,3 +325,11 @@ def test_validation_errors(mobilenet, programs):
         CNNService(program, batch_size=4, mesh_plan=tdist.plan_mesh(program, n_data=8))
     with pytest.raises(ValueError, match="shard"):
         CNNService(program, batch_size=8, mesh_plan=other)
+
+
+def test_run_local_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the ranks go on the card, so with none
+    ``run_local`` raises ``resolve_device``'s error before it spawns."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r"torch\.cuda\.is_available\(\) is False"):
+        tdist.run_local(2, ranks.sharded)

@@ -211,8 +211,31 @@ def test_steps_lower_and_compile_for_each_family(fake8, arch):
         assert c.collectives, name
     assert compiled["packed"].counter.binary["calls"] > 0
     assert compiled["decode"].counter.binary["calls"] == 0
-    with pytest.raises(NotImplementedError):
-        steps.lower_serve_step(cfg, mesh, tcb.input_specs(cfg, "decode_32k"), seq_sharded=True)
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (4, 2)])
+def test_seq_sharded_prefill_counts_each_rank_its_rows(fake8, monkeypatch, shape):
+    """A B = 1 packed prefill with the sequence-sharded rules: every kernel
+    call on the rank's 16 / data rows of the sequence, so the counted
+    product FLOPs per rank are 1 / data of the count without them."""
+    cfg = tcb.reduced(tcb.get_config("gemma_2b")).replace(quant=QuantConfig(mode="binary", M=2))
+    specs = {"tokens": torch.empty((1, 16), dtype=torch.int32, device="meta")}
+    rows, real = [], ca.CostCounter.binary_matmul
+
+    def counted(self, T, K, N, B_packed, alpha):
+        rows.append(T)
+        return real(self, T, K, N, B_packed, alpha)
+    monkeypatch.setattr(ca.CostCounter, "binary_matmul", counted)
+    mesh, n_data = fake8[shape], shape[0]
+    counts = {}
+    for seq in (False, True):
+        rows.clear()
+        c = steps.lower_serve_step(cfg, mesh, specs, kind="prefill", fsdp_params=False,
+                                   seq_sharded=seq).compile()
+        counts[seq] = (c.counter.binary["macs"], list(rows))
+    assert counts[False][1] == [16] * 7 * cfg.n_layers
+    assert counts[True][1] == [16 // n_data] * 7 * cfg.n_layers
+    assert counts[True][0] * n_data == counts[False][0] > 0
 
 
 def test_extrapolation_equals_the_direct_count(fake8):

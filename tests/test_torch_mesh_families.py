@@ -22,10 +22,21 @@ references computed here while it runs:
     of every MoE call are compared explicitly (``torch.topk`` promises no
     tie order).
 
+  * reduced mamba2 (SSM), zamba2 (hybrid: its shared attention block's
+    cache beside the recurrent state), whisper (enc-dec: self and cross
+    K/V, 24 frame embeddings) and internvl2 (VLM: 8 patch embeddings
+    before the tokens), binary M=2 over the packed tree, on a 2x2 mesh:
+    the recurrent state's masked write, the hybrid's shared-block cache
+    and the enc-dec self-K/V write land in place on each rank's shard of
+    the cache, and every binary linear runs the kernel wrapper on the
+    rank's column shard (half the columns of the single-process call, the
+    same K, its rows split on ``"data"`` where the single-process rows
+    divide).
+
 Each case runs one decode step (4 slots, a random cache) and one prefill
-forward (4 x 8 tokens).  Tolerance rtol 1e-4 / atol 1e-4·max|logit|, the
-sharded-LM tests' (MKL's sums change order when a product's rows or
-columns are split).
+forward (4 x 8 tokens).  Tolerance rtol 1e-4 / atol 1e-4·max|x| for the
+logits and the cache after the step, the sharded-LM tests' (MKL's sums
+change order when a product's rows or columns are split).
 """
 import threading
 
@@ -36,6 +47,8 @@ import torch
 import _torch_mesh_family_ranks as ranks
 from repro_torch.configs import base as tcb
 from repro_torch.convert import params_from_numpy
+from repro_torch.core.binlinear import QuantConfig
+from repro_torch.kernels import ops
 from repro_torch.distributed import run_local
 from repro_torch.models import api, moe
 from repro_torch.models import common as tcm
@@ -48,6 +61,11 @@ CASES = {"gemma_2x512": (lambda: tcb.reduced(tcb.get_config("gemma_2b")).replace
              dtype="float32"), 2),
          "grok_2_experts": (lambda: tcb.reduced(tcb.get_config("grok_1_314b")).replace(
              dtype="float32", n_experts=2), 4)}
+PACKED = {"mamba2": "mamba2_2_7b", "zamba2": "zamba2_7b", "whisper": "whisper_medium",
+          "internvl2": "internvl2_2b"}
+for _name, _arch in PACKED.items():
+    CASES[_name] = (lambda arch=_arch: tcb.reduced(tcb.get_config(arch)).replace(
+        dtype="float32", quant=QuantConfig(mode="binary", M=2, K_iters=2)), 2)
 MOE = ("deepseek", "grok_2_experts")
 
 
@@ -57,23 +75,33 @@ def _inputs(cfg, seed):
                          api.cache_specs(cfg, SLOTS, MAX_LEN))
     batch = {"tokens": rng.integers(0, cfg.vocab, (SLOTS, 1)).astype(np.int32), "pos": POS,
              "cache": cache}
-    return batch, rng.integers(0, cfg.vocab, (SLOTS, PROMPT)).astype(np.int32)
+    prompt = {"tokens": rng.integers(0, cfg.vocab, (SLOTS, PROMPT)).astype(np.int32)}
+    if cfg.family == "encdec":
+        prompt["frame_embeds"] = rng.standard_normal(
+            (SLOTS, cfg.encoder_len, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        prompt["patch_embeds"] = rng.standard_normal(
+            (SLOTS, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return batch, prompt
 
 
 def _single_process(cfg, batch_np, prompt_np) -> dict:
-    ids, real = [], moe.route
-    moe.route = ranks.recording_route(ids)
+    ids, calls, real, real_mm = [], [], moe.route, ops.binary_matmul
+    moe.route, ops.binary_matmul = ranks.recording_route(ids), ranks.recording_matmul(calls)
     try:
         params = ranks.params_of(cfg)
         with torch.no_grad():
-            logits, _ = api.decode_step(cfg, params, params_from_numpy(batch_np, device="cpu"))
-            decode_ids = list(ids)
+            logits, cache = api.decode_step(cfg, params,
+                                            params_from_numpy(batch_np, device="cpu"))
+            decode_ids, decode_calls = list(ids), list(calls)
             ids.clear()
-            prefill, _ = api.forward(cfg, params, {"tokens": torch.from_numpy(prompt_np)})
+            calls.clear()
+            prefill, _ = api.forward(cfg, params, params_from_numpy(prompt_np, device="cpu"))
     finally:
-        moe.route = real
-    return {"decode": logits.numpy(), "prefill": prefill.numpy(), "decode_ids": decode_ids,
-            "prefill_ids": list(ids)}
+        moe.route, ops.binary_matmul = real, real_mm
+    return {"decode": logits.numpy(), "prefill": prefill.numpy(),
+            "cache": tcm.tree_map(lambda t: t.numpy(), cache), "decode_ids": decode_ids,
+            "prefill_ids": list(ids), "decode_calls": decode_calls, "prefill_calls": list(calls)}
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +115,7 @@ def meshed():
 
     def spawn():
         try:
-            out["ranks"] = run_local(4, ranks.serve, cases, timeout_s=240)
+            out["ranks"] = run_local(4, ranks.serve, cases, device="cpu", timeout_s=240)
         except BaseException as e:  # noqa: BLE001 — raised below, in the test's thread
             out["ranks"] = e
 
@@ -133,3 +161,34 @@ def test_mesh_moe_routes_like_single_process(meshed, name, kind):
                 rows = w.shape[0] // (len(per_rank) // n_model)
                 w = w[rank // n_model * rows:(rank // n_model + 1) * rows]
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_mesh_cache_matches_single_process(meshed, name):
+    """The cache after the decode step, written in place on each rank's
+    shard (the KV rows, the latent cache, the recurrent and conv state,
+    the hybrid's shared-block cache, the enc-dec self K/V)."""
+    per_rank, refs = meshed
+    want = tcm.tree_leaves(refs[name]["cache"])
+    for r in per_rank:
+        got = tcm.tree_leaves(r[name]["cache"])
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _rel_close(g, w)
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+@pytest.mark.parametrize("name", list(PACKED))
+def test_binary_linears_run_on_column_shards(meshed, name, kind):
+    """Each kernel call of the single-process step has its counterpart on
+    every rank: the same K, half the columns (model 2), and half the rows
+    (data 2) where the single-process rows split over the data axis."""
+    per_rank, refs = meshed
+    want = refs[name][f"{kind}_calls"]
+    assert want
+    for r in per_rank:
+        got = r[name][f"{kind}_calls"]
+        assert len(got) == len(want)
+        for (x, b), (wx, wb) in zip(got, want):
+            assert x[-1] == wx[-1] and b[:-1] == wb[:-1] and b[-1] * 2 == wb[-1]
+            assert x[:-1] == ((wx[0] // 2,) + wx[1:-1] if wx[0] % 2 == 0 else wx[:-1])

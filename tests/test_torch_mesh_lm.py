@@ -143,7 +143,7 @@ def spawned(tmp_path_factory):
 
     def spawn(name, world, fn, *args):
         try:
-            out[name] = run_local(world, fn, *args, timeout_s=240)
+            out[name] = run_local(world, fn, *args, device="cpu", timeout_s=240)
         except BaseException as e:  # noqa: BLE001 — raised below, in the test's thread
             out[name] = e
 

@@ -175,6 +175,48 @@ def test_train_step_matches_the_reference(mode):
     _close_trees(tnew["params"], jnew["params"])
 
 
+def test_compressed_train_step_matches_the_reference():
+    """One ``grad_compress_M=2`` step from the same state against the JAX
+    package's own ``build_train_step`` on a 1x1 (data, model) mesh.  The
+    mesh is ``make_host_mesh``'s shape with Auto axes: jax 0.9's
+    ``make_mesh`` makes Explicit ones, under which the step's
+    ``with_sharding_constraint`` raises (the JAX package's own
+    ``tests/test_runtime.py`` fails there).  The error state is compared
+    too; the tolerances are the uncompressed step's."""
+    from jax.sharding import AxisType
+
+    from repro.core import compress as jgc
+    from repro.launch import steps as jsteps
+    from repro.models import common as jcm
+
+    jc, tc = _tiny()
+    jopt = jadamw(1e-2, eps=1e-3)
+    jparams = japi.init_params(jc, jax.random.PRNGKey(0))
+    jstate = {"params": jparams, "opt_state": jopt.init(jparams), "step": jnp.int32(0),
+              "grad_comp": jgc.init_state(jparams)}
+    tstate = params_from_numpy(_np({k: v for k, v in jstate.items() if k != "grad_comp"}),
+                               device="cpu")
+    tstate["grad_comp"] = tgc.init_state(tstate["params"])
+    batch = {k: np.asarray(v) for k, v in
+             SyntheticTokens(64, 16, 4, seed=0, device="cpu").next_batch().items()}
+    mesh = jax.make_mesh((len(jax.devices()), 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    try:
+        jstep, _ = jsteps.build_train_step(jc, mesh, jopt, grad_compress_M=2, donate=False)
+        with mesh:
+            jnew, jmet = jstep(jstate, {k: v.astype(np.int32) for k, v in batch.items()})
+    finally:
+        jcm.set_axis_rules(None)        # build_train_step installs the mesh's rules
+    step = tsteps.build_train_step(tc, adamw(1e-2, eps=1e-3), grad_compress_M=2)
+    tnew, tmet = step(tstate, _torch_batch(batch))
+    assert tnew["step"] == 1 and tmet["skipped"] is False
+    _close(tmet["loss"], jmet["loss"])
+    _close_trees(tnew["grad_comp"].error, jnew["grad_comp"].error)
+    _close_trees(tnew["opt_state"]["mu"], jnew["opt_state"]["mu"])
+    _close_trees(tnew["opt_state"]["nu"], jnew["opt_state"]["nu"])
+    _close_trees(tnew["params"], jnew["params"])
+
+
 def _clone(tree):
     return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
 
