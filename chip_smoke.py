@@ -58,7 +58,29 @@ source, all at once) and runs, each phase failing loudly:
      (CUDA events and host clock), a profiler window of 3 decode steps
      (``chiprun_out/trace_gemma.json``: kernels by name, idle share, the
      matmul kernel against the LM head's product), and per LM linear shape
-     the kernel, its plain version, ``x @ W_hat`` and the bound;
+     the kernel, its plain version, ``x @ W_hat`` and the bound; then the
+     dense LMs in their own dtype, bf16, with packed M=2 linears on the
+     kernel's bf16-x route (each launch reads the bf16 rows as they are):
+     (7b) phase 7's packed gemma-2b, all 18 layers, its embedding and norms
+     cast to bf16: every bf16-x launch at each LM linear shape and row count
+     ``torch.equal`` to the same launch on ``x.float()`` at the picked and
+     the second plan, ``ops.binary_matmul`` running no aten op on x but
+     views; phase 7's 8 requests served with 126 launches per pass, every
+     one on bf16 x, a second run bit-equal; bulk admission against
+     token-wise and 2 layers against the plain versions on the CPU within
+     rtol 2e-2 / atol 2e-2·max|x|; the 64-token admission and the decode
+     step at 8 slots beside 7a's fp32 ones, and a profile of 3 bf16
+     decode steps beside 7a's; per linear the kernel, its plain version
+     and bf16 ``x @ W_hat``, the launcher alone on bf16 x and on its fp32
+     copy in turns, and the bf16-x route against the route before it (x
+     cast to fp32, the fp32 launch, y cast back); (7c) h2o-danube-1.8b, 24 layers at
+     full width, its published 4096-token window: one 4200-token prompt
+     admitted in bulk wraps the ring, 8 decoded tokens' logits within the
+     bf16 tolerance of the teacher-forced forward over the same tokens
+     (168 launches per pass), 2 layers with the window cut to 16 against
+     the CPU; (7d) qwen3-14b (qk-norm) and codeqwen1.5-7b (``qkv_bias``)
+     at full width cut to 4 layers: served with 28 launches per pass, 2
+     layers against the CPU;
   8. training, after phase 7's model is freed: (a) the paper's Table II
      pipeline on CNN-A (``tools/torch_train_cnn_a.py``: 300 fp32 AdamW steps
      at 1e-3, Algorithm 2 with K_iters 25, 150 STE steps at 1e-4, batch 64,
@@ -75,7 +97,12 @@ source, all at once) and runs, each phase failing loudly:
      at reduced(gemma_2b), fp32, deterministic algorithms: a run killed at
      step 5 and resumed ends ``torch.equal`` to the uninterrupted one, one
      injected non-finite loss is skipped and counted (checkpoints in
-     ``chiprun_out/train_ckpt/``);
+     ``chiprun_out/train_ckpt/``); (d) whisper-medium and internvl2-2b at
+     published width and depth in bf16 with remat, fake-quant M=2: one step
+     at 8 x 64 tokens with random frame or patch embeddings, the whole
+     state through host memory and back, a second step from it; both
+     losses finite, no NaN skip, every leaf's moments moved, every weight
+     leaf changed; the steps' ms and the peak memory;
   9. the verification tier: (a) fuzz: 128 random networks
      (``testing/fuzz.random_network`` seeds 0-127, the JAX package's draws)
      compiled on the card with zero verifier ERRORs, ``execute`` at each
@@ -242,7 +269,7 @@ floor: the reference's random MobileNet init shrinks activations to ~1e-13
 by the head, and 28 layers of fp32 sums run in another order on each side).
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` counts the main
-paths of phases 2, 3, 7, 8a, 9a, 9c, 10, 11, 12, 13, 14 and 15b, ``cnn_launches`` phases 2-3,
+paths of phases 2, 3, 7 (7b-7d under ``lm_bf16_launches``), 8a, 9a, 9c, 10, 11, 12, 13, 14 and 15b, ``cnn_launches`` phases 2-3,
 ``serve_launches`` phase 6, ``lm_launches`` phase 7's serving,
 ``train_launches`` phase 8a's execute, ``fuzz_launches`` phase 9a's
 ``execute`` calls, ``soak_launches`` phase 9c's soaks, ``moe_launches``
@@ -277,6 +304,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -291,6 +319,7 @@ try:
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import binary_matmul as bmk
     from repro_torch.kernels import ref as kref
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import api, common as cm, transformer as tf
@@ -795,14 +824,19 @@ def lm_config():
 
 
 def build_lm(cfg, dev, where: str = "phase 7") -> tuple[dict, dict]:
-    """Phase 7: the weights drawn on the card from a seeded generator, each
-    layer binarized as soon as it is drawn (its fp32 latent weights freed),
-    so the 7.9 GB of fp32 layer weights are never held at once."""
+    """Phase 7: a dense LM's weights drawn on the card from a seeded
+    generator, each layer binarized as soon as it is drawn (its latent
+    weights freed), so gemma-2b's 7.9 GB of fp32 layer weights are never
+    held at once; the embedding (and an untied head) and norms in the
+    config's dtype."""
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = {"embed": cm.init_embedding(gen, cfg.vocab, cfg.d_model, cfg.torch_dtype,
                                          device=dev)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = cm.init_embedding(gen, cfg.vocab, cfg.d_model, cfg.torch_dtype,
+                                              device=dev)
     layers, bin_s = [], 0.0
     for _ in range(cfg.n_layers):
         fp = tf.init_layer(gen, cfg, device=dev)
@@ -822,8 +856,8 @@ def build_lm(cfg, dev, where: str = "phase 7") -> tuple[dict, dict]:
             "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
             "packed_gb": sum(t.numel() for t in leaves if t.dtype == torch.uint8) / 1e9}
-    print(f"{where}: gemma-2b {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab}: built in {info['build_s']:.2f} s, of which binarize "
+    print(f"{where}: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}: built in {info['build_s']:.2f} s, of which binarize "
           f"{bin_s:.2f} s (Algorithm 2, M=2, K_iters 8); packed weights "
           f"{info['packed_gb']:.3f} GB; card memory in use {info['memory_allocated_gb']:.2f} GB "
           f"(peak {info['max_memory_allocated_gb']:.2f} GB)")
@@ -988,11 +1022,12 @@ def serve_lm(cfg, params, dev) -> dict:
             "out_tokens": [r.out_tokens for r in reqs]}
 
 
-def card_vs_plain(where: str, cfg, card: dict, n_prompt: int = 16) -> float:
+def card_vs_plain(where: str, cfg, card: dict, n_prompt: int = 16, tol: float = 1e-4) -> float:
     """The card against the plain versions: prefill of ``n_prompt`` tokens
     and 2 decode steps through the port's functions on ``card`` and on a CPU
-    copy of it; logits and every cache leaf within rtol 1e-4 /
-    atol 1e-4·max|x|.  Returns the worst max|d|/max|x|."""
+    copy of it; logits and every float cache leaf within rtol ``tol`` /
+    atol ``tol``·max|x| (integer leaves equal).  Returns the worst
+    max|d|/max|x|."""
     host = cm.tree_map(lambda t: t.cpu(), card)
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n_prompt)).astype(np.int64))
@@ -1011,25 +1046,29 @@ def card_vs_plain(where: str, cfg, card: dict, n_prompt: int = 16) -> float:
     worst = 0.0
     for what, a, b in [("logits", x, y) for x, y in zip(outs["card"][0], outs["plain"][0])] \
             + [("cache", x, y) for x, y in zip(outs["card"][1], outs["plain"][1])]:
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                fail(f"{where} card vs plain ({what}): integer leaves differ")
+            continue
+        a, b = a.float(), b.float()
         scale = float(b.abs().max())
         err = float((a - b).abs().max())
         worst = max(worst, err / max(scale, 1e-30))
         if not torch.isfinite(a).all() or scale == 0.0 or \
-                not torch.allclose(a, b, rtol=1e-4, atol=1e-4 * scale):
+                not torch.allclose(a, b, rtol=tol, atol=tol * scale):
             fail(f"{where} card vs plain ({what}): max |d| {err:.3g}, max |plain| {scale:.3g}")
     return worst
 
 
-def lm_card_vs_plain(cfg, params, dev) -> dict:
+def lm_card_vs_plain(cfg, params, dev, where: str = "phase 7", tol: float = 1e-4) -> dict:
     """Phase 7: the card against the plain versions, the same weights cut to
-    2 layers at full width."""
-    card = {"embed": params["embed"], "final_norm": params["final_norm"],
-            "layers": cm.tree_map(lambda t: t[:2], params["layers"])}
-    worst = card_vs_plain("LM", cfg.replace(n_layers=2), card)
-    print(f"phase 7: 2 layers at full width, prefill of 16 tokens + 2 decode steps: card "
-          f"within rtol 1e-4 / atol 1e-4·max|x| of the plain versions on the CPU (logits and "
-          f"every cache leaf); worst max|d|/max|x| {worst:.3g}")
-    return {"worst_rel_err": worst}
+    2 layers at full width (``cfg`` may cut more: danube's window)."""
+    card = dict(params, layers=cm.tree_map(lambda t: t[:2], params["layers"]))
+    worst = card_vs_plain(f"{where} {cfg.name}", cfg.replace(n_layers=2), card, tol=tol)
+    print(f"{where}: {cfg.name} cut to 2 layers at full width, {cfg.dtype}, prefill of 16 "
+          f"tokens + 2 decode steps: card within rtol {tol} / atol {tol}·max|x| of the plain "
+          f"versions on the CPU (logits and every cache leaf); worst max|d|/max|x| {worst:.3g}")
+    return {"worst_rel_err": worst, "tol": tol}
 
 
 def decode_timing(where: str, cfg, params, admit_reps: int = 6) -> tuple[dict, Server]:
@@ -1088,9 +1127,16 @@ def lm_timing(cfg, params, gen: torch.Generator, dev, out_dir: Path) -> dict:
     active slots, a profiler window of 3 decode steps, and the LM linears
     one by one (``time_lm_linears``)."""
     step, srv = decode_timing("phase 7", cfg, params)
+    split = profile_decode("phase 7", cfg, srv, out_dir / "trace_gemma.json")
+    return {**step, "profile": split, "linears": time_lm_linears(params, gen, dev)}
 
+
+def profile_decode(where: str, cfg, srv: Server, path: Path) -> dict:
+    """torch.profiler over 3 decode steps of ``srv`` (after one dropped
+    warm-up step): the device split (``device_split``), the binary_matmul
+    and LM-head device time, the device kernels and the host-side aten ops
+    per step, and the ten kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    path = out_dir / "trace_gemma.json"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
                  schedule=schedule(wait=0, warmup=1, active=3, repeat=1),
                  on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
@@ -1098,49 +1144,59 @@ def lm_timing(cfg, params, gen: torch.Generator, dev, out_dir: Path) -> dict:
             srv.step()
             torch.cuda.synchronize()
             prof.step()
-    split = device_split(json.loads(path.read_text())["traceEvents"])
+    events = json.loads(path.read_text())["traceEvents"]
+    split = device_split(events)
     mm_us = sum(us for n, us in split["device_us_by_name"].items() if "binary_matmul" in n)
     head_us = sum(e.device_time_total for e in prof.key_averages(group_by_input_shape=True)
                   if e.key == "aten::mm" and any(cfg.vocab in (s or []) for s in e.input_shapes))
     if mm_us == 0 or head_us == 0:
-        fail(f"LM profile: binary_matmul {mm_us} us, LM head {head_us} us")
-    split.update(binary_matmul_us_per_step=mm_us / 3, lm_head_us_per_step=head_us / 3)
-    print(f"phase 7: profiler over 3 decode steps: window {split['window_us'] / 3e3:.4f} ms "
+        fail(f"{where} LM profile: binary_matmul {mm_us} us, LM head {head_us} us")
+    kernels = sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
+    ops_ = sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op")
+    split.update(binary_matmul_us_per_step=mm_us / 3, lm_head_us_per_step=head_us / 3,
+                 kernels_per_step=kernels / 3, cpu_ops_per_step=ops_ / 3)
+    print(f"{where}: profiler over 3 decode steps: window {split['window_us'] / 3e3:.4f} ms "
           f"per step, device busy {split['busy_us'] / 3e3:.4f} ms, idle share "
           f"{split['idle_share']:.4f}; binary_matmul {mm_us / 3e3:.4f} ms and LM head "
-          f"{head_us / 3e3:.4f} ms of device time per step; trace {path.relative_to(ROOT)}")
+          f"{head_us / 3e3:.4f} ms of device time per step; {kernels / 3:.1f} device kernels "
+          f"and {ops_ / 3:.1f} aten ops (nested included) per step; trace "
+          f"{path.relative_to(ROOT)}")
     for name, us in list(split["device_us_by_name"].items())[:10]:
         print(f"  {us / 3e3:.5f} ms per step  {name[:110]}")
-    return {**step, "profile": split, "linears": time_lm_linears(params, gen, dev)}
+    return split
 
 
 def time_linears(where: str, weights: dict, gen: torch.Generator, dev,
-                 row_counts=(LM_BATCH, LM_BUCKET)) -> list:
+                 row_counts=(LM_BATCH, LM_BUCKET), dtype=torch.float32) -> list:
     """Per packed linear of ``weights`` at each of ``row_counts`` (by
-    default T = 8, decode, and 64, the prefill bucket), m_active 2: the
-    kernel, its plain version and ``x @ W_hat`` (CUDA graphs) and the
-    bound."""
+    default T = 8, decode, and 64, the prefill bucket), m_active 2, x in
+    ``dtype``: the kernel (through ``ops.binary_matmul``, its output cast
+    to x's dtype), its plain version and ``x @ W_hat`` in x's dtype (CUDA
+    graphs) and the bound (x read at its own width)."""
     rows = []
     for name, p in weights.items():
         K, N = p["B_packed"].shape[1] * 8, p["B_packed"].shape[2]
-        W_hat = bz.reconstruct(bz.BinApprox(bz.unpack_bits(p["B_packed"], K), p["alpha"], K))
+        W_hat = bz.reconstruct(bz.BinApprox(bz.unpack_bits(p["B_packed"], K), p["alpha"],
+                                            K)).to(dtype)
         for T in row_counts:
-            x = torch.randn(T, K, generator=gen).to(dev)
+            x = torch.randn(T, K, generator=gen).to(dev, dtype)
             kw = dict(K=K, group_size=K)
             ms = graph_ms(lambda: ops.binary_matmul(x, p["B_packed"], p["alpha"], **kw))
             plain_ms = graph_ms(lambda: kref.binary_matmul_ref(x, p["B_packed"], p["alpha"],
                                                                **kw), reps=3)
             lib_ms = graph_ms(lambda: x @ W_hat)
-            nbytes = 4 * T * K + p["B_packed"].numel() + 4 * p["alpha"].numel() + 4 * T * N
+            nbytes = (x.element_size() * T * K + p["B_packed"].numel()
+                      + 4 * p["alpha"].numel() + 4 * T * N)
             flops = 2 * T * K * N
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-            rows.append({"shape": name, "T": T, "K": K, "N": N,
+            rows.append({"shape": name, "T": T, "K": K, "N": N, "x_dtype": str(dtype),
                          "plan": list(ops.pick_matmul_plan(T, N)), "ms": ms,
                          "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": max(t_bytes, t_ops),
                          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                          "bytes": nbytes, "flops": flops})
-            print(f"  {where} {name} T={T} plan {tuple(rows[-1]['plan'])}: kernel {ms:.5f} ms, "
+            print(f"  {where} {name} T={T} x {dtype} plan {tuple(rows[-1]['plan'])}: kernel "
+                  f"{ms:.5f} ms, "
                   f"plain {plain_ms:.5f} ms, x @ W_hat {lib_ms:.5f} ms, bound "
                   f"{rows[-1]['bound_ms']:.5f} ms ({rows[-1]['bound_by']})")
         del W_hat
@@ -1153,7 +1209,8 @@ def time_lm_linears(params, gen: torch.Generator, dev) -> list:
 
 
 def lm_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
-    """Phase 7: gemma-2b on the card through the port's LM stack and Server."""
+    """Phase 7: gemma-2b on the card through the port's LM stack and Server
+    (7a, fp32), then the dense LMs in their own dtype (7b-7d)."""
     cfg = lm_config()
     t0 = time.time()
     params, build = build_lm(cfg, dev)
@@ -1161,11 +1218,323 @@ def lm_phase(gen: torch.Generator, dev, out_dir: Path) -> dict:
     served = serve_lm(cfg, params, dev)
     plain = lm_card_vs_plain(cfg, params, dev)
     timing = lm_timing(cfg, params, gen, dev, out_dir)
+    print(f"phase 7a: {time.time() - t0:.1f} s")
+    t1 = time.time()
+    bf16 = {"gemma_2b": gemma_bf16(cfg, params, gen, dev, timing, out_dir)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16["h2o_danube_1_8b"] = danube_ring(gen, dev)
+    for name in DENSE_CUT:
+        bf16[name] = dense_cut(name, gen, dev)
+    launches = {k: sum(r["launches"][k] for r in bf16.values()) for k in TPU_KERNELS}
+    print(f"phase 7b-7d: {time.time() - t1:.1f} s; launches {launches}")
     print(f"phase 7: {time.time() - t0:.1f} s")
     return {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
                        "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype, "M": 2},
-            "build": build, "max_abs_err": max_err, "serve": served,
-            "card_vs_plain": plain, "timing": timing}
+            "build": build, "max_abs_err": max_err, "serve": served, "card_vs_plain": plain, "timing": timing,
+            "bf16": bf16, "bf16_launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7b-7d: the dense LMs in their own dtype (bf16), packed M=2 linears
+# on the kernel, which reads the bf16 rows as they are
+# ---------------------------------------------------------------------------
+
+LM_BF16_TOL = 2e-2    # bf16 logits and caches: rtol and atol·max|x| (MESH_LM_BF16_RTOL's)
+RING_PROMPT, RING_DECODES = 4200, 8     # 7c: a prompt past danube's 4096-token window
+RING_CPU_WINDOW = 16                    # 7c's card vs plain: a 16-token prompt fills the ring
+DENSE_CUT = {"qwen3_14b": 4, "codeqwen15_7b": 4}    # 7d: depth 40 / 32 cut to 4 (time)
+
+
+def dense_bf16_config(name: str, n_layers: int | None = None):
+    """``name`` at published width in its own dtype (bf16), M=2 binary
+    linears (K_iters 8); ``n_layers`` cuts the depth."""
+    cfg = get_config(name).replace(quant=QuantConfig(mode="binary", M=2, K_iters=8))
+    return cfg if n_layers is None else cfg.replace(n_layers=n_layers)
+
+
+def dense_weights(params) -> dict:
+    """One packed linear of each shape of a dense LM's layer 0."""
+    return {f"{a}/{w}": cm.tree_index(params["layers"][a][w], 0)
+            for a, ws in (("attn", ("wq", "wk", "wv", "wo")),
+                          ("ffn", ("w_gate", "w_up", "w_down")))
+            for w in ws}
+
+
+@contextlib.contextmanager
+def kernel_x_dtypes(seen: list):
+    """``binary_matmul.launch`` recording the dtype of each launch's x."""
+    real = bmk.launch
+
+    def rec(x, *args, **kw):
+        seen.append(x.dtype)
+        return real(x, *args, **kw)
+    bmk.launch = rec
+    try:
+        yield
+    finally:
+        bmk.launch = real
+
+
+class AtenOps(TorchDispatchMode):
+    """The aten ops dispatched while it is active, each with its tensor
+    inputs' dtypes."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+        self.ops.append((func._overloadpacket.__name__,
+                         [a.dtype for a in args if isinstance(a, torch.Tensor)]))
+        return func(*args, **(kwargs or {}))
+
+
+VIEW_OPS = {"view", "_reshape_alias", "reshape", "_unsafe_view", "as_strided", "alias",
+            "detach", "expand", "slice", "select", "t", "transpose", "unsqueeze", "squeeze"}
+
+
+def bf16_x_checks(where: str, weights: dict, rows: list, gen: torch.Generator, dev) -> int:
+    """The matmul kernel on bf16 x: its fp32 output ``torch.equal`` to the
+    same launch on ``x.float()`` at each linear of ``weights``, each row
+    count of ``rows``, m_active 1 and 2, at the picked plan and the second
+    one; and ``ops.binary_matmul`` on bf16 x copies no x (no aten op but a
+    view reads a bf16 tensor) and returns bf16.  Returns the checks."""
+    checks = 0
+    for name, p in weights.items():
+        K, N = p["B_packed"].shape[1] * 8, p["B_packed"].shape[2]
+        for T in rows:
+            xb = torch.randn(T, K, generator=gen).to(dev, torch.bfloat16)
+            for m in (1, 2):
+                for plan in (ops.pick_matmul_plan(T, N), ALT_PLAN["linear"]):
+                    kw = dict(K=K, group_size=K, m_active=m, plan=plan)
+                    got = bmk.launch(xb, p["B_packed"], p["alpha"], **kw)
+                    want = bmk.launch(xb.float(), p["B_packed"], p["alpha"], **kw)
+                    if not torch.equal(got, want):
+                        fail(f"{where} {name} T={T} m={m} plan {plan}: bf16 x differs from "
+                             f"x.float() (max |d| {float((got - want).abs().max()):.3g})")
+                    checks += 1
+        rec = AtenOps()
+        with rec:
+            y = ops.binary_matmul(xb, p["B_packed"], p["alpha"], K=K, group_size=K)
+        copies = [op for op, dts in rec.ops if torch.bfloat16 in dts and op not in VIEW_OPS]
+        if copies or y.dtype != torch.bfloat16:
+            fail(f"{where} {name}: ops.binary_matmul on bf16 x ran {copies} on it, "
+                 f"returned {y.dtype}")
+    # an odd K, and an x two bytes off a 4-byte boundary: read element by
+    # element, not two per 32-bit load
+    for K, off in ((1001, 0), (2048, 1)):
+        flat = torch.randn(8 * K + 1, generator=gen).to(dev, torch.bfloat16)
+        xb = flat[off: off + 8 * K].view(8, K)
+        signs = torch.randint(0, 2, (2, K, 96), generator=gen, dtype=torch.int8) * 2 - 1
+        bp = bz.pack_bits(bz.pad_rows_to_byte(signs)).to(dev)
+        al = torch.rand(2, 1, 96, generator=gen).to(dev) / K ** 0.5
+        for plan in ((1, 32), ALT_PLAN["linear"], (8, 32)):
+            kw = dict(K=K, group_size=K, m_active=2, plan=plan)
+            if not torch.equal(bmk.launch(xb, bp, al, **kw), bmk.launch(xb.float(), bp, al, **kw)):
+                fail(f"{where}: bf16 x at K={K}, offset {off} differs from x.float() at {plan}")
+            checks += 1
+    torch.cuda.synchronize()
+    print(f"{where}: {checks} bf16-x launches torch.equal to the same launches on x.float() "
+          f"({len(weights)} linear shapes, T = {rows}, m_active 1 and 2, both plans; K = 1001 "
+          f"and an x off a 4-byte boundary, read by elements); ops.binary_matmul reads bf16 x "
+          f"with no cast (its aten ops on x: views only)")
+    return checks
+
+
+def served_bf16(where: str, cfg, params, per_pass: int) -> dict:
+    """``serve_twice`` (phase 7's requests at 8 slots, ``per_pass`` matmul
+    launches per admission and per decode group step, a second run
+    bit-equal) with every launch's x recorded: all bf16."""
+    seen = []
+    with kernel_x_dtypes(seen):
+        reqs, srv, rounds, launches, serve_s = serve_twice(where, cfg, params, per_pass)
+    n = launches["binary_matmul"]
+    if len(seen) != 2 * n or set(seen) != {torch.bfloat16}:
+        fail(f"{where} {cfg.name}: {len(seen)} launches over the two runs (want 2 x {n}), "
+             f"x dtypes {set(seen)}")
+    print(f"phase {where}: {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}) served "
+          f"{len(reqs)} requests in {rounds} rounds, {serve_s:.2f} s; {per_pass} matmul launches "
+          f"per admission and per decode group step, every one on bf16 x; a second run gave the "
+          f"same tokens and bit-equal logits")
+    return {"stats": srv.stats, "rounds": rounds, "serve_s": serve_s, "launches": launches,
+            "per_pass": per_pass, "out_tokens": [r.out_tokens for r in reqs]}
+
+
+def bulk_vs_tokenwise_bf16(where: str, cfg, params, prompt: np.ndarray) -> float:
+    """Admission of ``prompt`` and the decode step that reads its last token,
+    bulk and token-wise: the logits and slot 0's cache within the bf16
+    tolerance; returns the worst max|d|/max|x|."""
+    sides = {}
+    for mode in ("bulk", "tokenwise"):
+        srv = Server(cfg, params, max_batch=LM_BATCH, max_len=LM_LEN, prefill=mode,
+                     prefill_buckets=None)
+        r = Request(prompt=prompt.copy(), max_new_tokens=1)
+        srv.admit(r)
+        srv.step()
+        sides[mode] = [torch.from_numpy(r.last_logits)] + [
+            t[:, 0].cpu() for t in cm.tree_leaves(srv.cache)]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(sides["bulk"], sides["tokenwise"])):
+        if a.is_floating_point():
+            worst = max(worst, close_to(f"{where} bulk vs token-wise ({'logits' if i == 0 else 'cache'})",
+                                        a, b, LM_BF16_TOL))
+        elif not torch.equal(a, b):
+            fail(f"{where} bulk vs token-wise: integer cache leaves differ")
+    print(f"phase {where}: {cfg.name} bulk admission of {prompt.size} tokens vs token-wise: "
+          f"logits and slot 0's cache within rtol {LM_BF16_TOL} / atol {LM_BF16_TOL}·max|x|; "
+          f"worst max|d|/max|x| {worst:.3g}")
+    return worst
+
+
+def gemma_bf16(cfg, params, gen: torch.Generator, dev, fp32: dict, out_dir: Path) -> dict:
+    """Phase 7b: phase 7's packed gemma-2b (all 18 layers) in bf16: the
+    embedding and norms cast, the packed bits and fp32 alphas kept."""
+    t0 = time.time()
+    cfg16, p16 = bf16_tree(cfg, params)
+    weights = {n: lm_weight(p16, n) for n in LM_LINEARS}
+    rows = lm_rows(cfg16, p16)
+    checks = bf16_x_checks("phase 7b", weights, rows, gen, dev)
+    served = served_bf16("7b", cfg16, p16, cfg.n_layers * 7)
+    bulk = bulk_vs_tokenwise_bf16("7b", cfg16, p16, lm_requests(cfg16)[0].prompt)
+    plain = lm_card_vs_plain(cfg16, p16, dev, "phase 7b", LM_BF16_TOL)
+    step, srv = decode_timing("phase 7b", cfg16, p16)
+    step["profile"] = profile_decode("phase 7b", cfg16, srv, out_dir / "trace_gemma_bf16.json")
+    del srv
+    p, q = step["profile"], fp32["profile"]
+    print(f"phase 7b: bf16 beside phase 7's fp32 in this run: admission of {LM_BUCKET} tokens "
+          f"{step['admit_64_ms']:.3f} vs {fp32['admit_64_ms']:.3f} ms, decode step at "
+          f"{LM_BATCH} slots {step['decode_step_host_ms']:.3f} vs "
+          f"{fp32['decode_step_host_ms']:.3f} ms host clock; per step "
+          f"{p['kernels_per_step']:.1f} vs {q['kernels_per_step']:.1f} device kernels, "
+          f"{p['cpu_ops_per_step']:.1f} vs {q['cpu_ops_per_step']:.1f} aten ops, binary_matmul "
+          f"{p['binary_matmul_us_per_step'] / 1e3:.4f} vs "
+          f"{q['binary_matmul_us_per_step'] / 1e3:.4f} ms of device time")
+    linears = time_linears("7b", weights, gen, dev, dtype=torch.bfloat16)
+    launch_ms = time_launches("7b", weights, gen, dev)
+    print(f"phase 7b: {time.time() - t0:.1f} s")
+    return {"bf16_x_checks": checks, "serve": served,
+            "launches": served["launches"], "bulk_vs_tokenwise": bulk,
+            "card_vs_plain": plain, "timing": step, "linears": linears,
+            "launch_ms": launch_ms, "seconds": time.time() - t0}
+
+
+def time_launches(where: str, weights: dict, gen: torch.Generator, dev,
+                  row_counts=(LM_BATCH, LM_BUCKET)) -> list:
+    """At each linear of ``weights`` and each of ``row_counts``, m_active 2:
+    the launcher alone (no wrapper, no cast of x or of y) on bf16 x and on
+    an fp32 copy of it, and the two routes a bf16 model's linear can take:
+    the kernel reading bf16 x (``ops.binary_matmul``: the launch, then y
+    cast to bf16) and the route before the kernel read bf16 (x cast to
+    fp32, the fp32 launch, y cast to bf16).  Each in CUDA graphs (device
+    time) and issued from the host (``loop_ms``: host work included), in
+    the order a, b, b, a."""
+    rows = []
+    for name, p in weights.items():
+        K = p["B_packed"].shape[1] * 8
+        for T in row_counts:
+            xb = torch.randn(T, K, generator=gen).to(dev, torch.bfloat16)
+            xf = xb.float()
+            kw = dict(K=K, group_size=K, m_active=2,
+                      plan=ops.pick_matmul_plan(T, p["B_packed"].shape[2]))
+            fns = {"bf16": lambda: bmk.launch(xb, p["B_packed"], p["alpha"], **kw),
+                   "fp32": lambda: bmk.launch(xf, p["B_packed"], p["alpha"], **kw),
+                   "route_bf16": lambda: ops.binary_matmul(xb, p["B_packed"], p["alpha"],
+                                                           K=K, group_size=K),
+                   "route_cast": lambda: bmk.launch(xb.float(), p["B_packed"], p["alpha"],
+                                                    **kw).to(torch.bfloat16)}
+            if not torch.equal(fns["route_bf16"](), fns["route_cast"]()):
+                fail(f"{where} {name} T={T}: the two bf16 routes differ")
+            ms = {}
+            for a, b in (("bf16", "fp32"), ("route_bf16", "route_cast")):
+                for key in (a, b, b, a):
+                    ms.setdefault(f"{key}_ms", []).append(graph_ms(fns[key]))
+                for key in (a, b, b, a):
+                    ms.setdefault(f"{key}_host_ms", []).append(loop_ms(fns[key], reps=50))
+            rows.append({"shape": name, "T": T, **ms})
+            f = lambda k: " / ".join(f"{v:.5f}" for v in ms[k])  # noqa: E731
+            print(f"  {where} {name} T={T}: launcher alone bf16 x {f('bf16_ms')} ms, fp32 x "
+                  f"{f('fp32_ms')} ms; route bf16 x {f('route_bf16_ms')} ms, cast route "
+                  f"{f('route_cast_ms')} ms (graphs); from the host: route bf16 x "
+                  f"{f('route_bf16_host_ms')} ms, cast route {f('route_cast_host_ms')} ms")
+    return rows
+
+
+def danube_ring(gen: torch.Generator, dev) -> dict:
+    """Phase 7c: h2o-danube-1.8b, 24 layers at full width, bf16, its
+    published 4096-token window: one request whose prompt (4200 tokens)
+    wraps the ring, admitted in bulk and decoded 8 tokens (24 x 7 matmul
+    launches per pass), each step's logits within the bf16 tolerance of
+    the teacher-forced forward over the same tokens with the sliding mask;
+    the kernel's bf16 checks at its linear shapes; 2 layers with the window
+    cut to 16 against the plain versions on the CPU."""
+    t0 = time.time()
+    cfg = dense_bf16_config("h2o_danube_1_8b")
+    params, build = build_lm(cfg, dev, "phase 7c")
+    weights = dense_weights(params)
+    checks = bf16_x_checks("phase 7c", weights, [1, LM_BATCH, 16, LM_BUCKET], gen, dev)
+    per_pass = cfg.n_layers * 7
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab, RING_PROMPT).astype(np.int32)
+    srv = Server(cfg, params, max_batch=LM_BATCH, max_len=RING_PROMPT + RING_DECODES + 1)
+    r = Request(prompt=prompt, max_new_tokens=RING_DECODES)
+    seen, logits, launches = [], [], {k: 0 for k in TPU_KERNELS}
+    with kernel_x_dtypes(seen):
+        _, n = counted_step(lambda: srv.admit(r) or fail("7c: admission refused"))
+        passes = [n]
+        while not r.done:
+            _, n = counted_step(srv.step)
+            passes.append(n)
+            logits.append(torch.from_numpy(r.last_logits))
+    if passes != [per_pass] * (RING_DECODES + 1) or set(seen) != {torch.bfloat16} \
+            or srv.stats["bulk_prefills"] != 1:
+        fail(f"7c: matmul launches per pass {passes} (want {per_pass} each), x dtypes "
+             f"{set(seen)}, stats {srv.stats}")
+    launches["binary_matmul"] = sum(passes)
+    ring = cm.tree_leaves(srv.cache)
+    window = ring[0].shape[2] if ring else 0
+    toks = np.concatenate([prompt, np.asarray(r.out_tokens[:-1], np.int32)])
+    with torch.no_grad():
+        full, _ = api.forward(cfg, params, {"tokens": torch.from_numpy(toks)[None].to(dev)})
+    want = full[0, RING_PROMPT - 1:].float().cpu()
+    del full
+    worst = close_to("7c decode vs the teacher-forced forward", torch.stack(logits), want,
+                     LM_BF16_TOL)
+    print(f"phase 7c: {cfg.name} (window {cfg.sliding_window}, ring of {window} rows): a "
+          f"{RING_PROMPT}-token prompt admitted in bulk and {RING_DECODES} tokens decoded "
+          f"({per_pass} matmul launches per pass, every one on bf16 x), each step's logits "
+          f"within rtol {LM_BF16_TOL} / atol {LM_BF16_TOL}·max|x| of the teacher-forced forward "
+          f"over the same {toks.size} tokens; worst max|d|/max|x| {worst:.3g}")
+    plain = lm_card_vs_plain(cfg.replace(sliding_window=RING_CPU_WINDOW), params, dev,
+                             "phase 7c", LM_BF16_TOL)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 7c: {time.time() - t0:.1f} s")
+    return {"build": build, "bf16_x_checks": checks, "launches": launches,
+            "ring_rows": window, "decode_vs_forward": worst, "out_tokens": r.out_tokens,
+            "card_vs_plain": plain, "seconds": time.time() - t0}
+
+
+def dense_cut(name: str, gen: torch.Generator, dev) -> dict:
+    """Phase 7d: ``name`` (qwen3-14b: qk-norm; codeqwen1.5-7b: qkv_bias) at
+    full width, bf16, cut to ``DENSE_CUT[name]`` layers: the kernel's bf16
+    checks at its linear shapes, phase 7's requests served at 8 slots with
+    launch counts, 2 layers against the plain versions on the CPU."""
+    t0 = time.time()
+    cfg = dense_bf16_config(name, DENSE_CUT[name])
+    params, build = build_lm(cfg, dev, "phase 7d")
+    checks = bf16_x_checks("phase 7d", dense_weights(params), [1, LM_BATCH, 16, LM_BUCKET],
+                           gen, dev)
+    served = served_bf16("7d", cfg, params, cfg.n_layers * 7)
+    plain = lm_card_vs_plain(cfg, params, dev, "phase 7d", LM_BF16_TOL)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 7d: {cfg.name}: {time.time() - t0:.1f} s")
+    return {"build": build, "bf16_x_checks": checks, "serve": served,
+            "launches": served["launches"], "card_vs_plain": plain,
+            "seconds": time.time() - t0}
 
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 3     # phase 8b: 1 warm step, 2 timed
@@ -1387,16 +1756,102 @@ def train_resume(dev, out_dir: Path) -> dict:
     return res
 
 
+TRAIN_WIDE = ("whisper_medium", "internvl2_2b")    # phase 8d
+
+
+def train_wide(name: str, dev) -> dict:
+    """Phase 8d: ``name`` at published width and depth in its own dtype
+    (bf16) with remat, fake-quant M=2 (K_iters 8), phase 8b's optimizer and
+    batch (8 x 64 tokens) with random frame or patch embeddings, as the stub
+    frontends take them: one ``build_train_step`` step; the whole state
+    (params, both moments, the step) copied to the host, dropped from the
+    card and restored from that copy; a second step by a fresh step
+    function from the restored state.  Gates (8b's): both losses finite and
+    no NaN skip, every leaf's moments moved, every weight leaf changed (a
+    norm scale at 1.0 does not move in bf16 at this warmup's lr); the
+    steps' ms and the peak memory."""
+    cfg = get_config(name).replace(quant=QuantConfig(mode="fake_quant", M=2, K_iters=8))
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw(warmup_cosine(3e-4, 10, 2))
+    state = train_steps.init_train_state(cfg, opt, device=dev)
+    n_params = sum(t.numel() for t in cm.tree_leaves(state["params"]))
+    before = [t.to("cpu", copy=True) for t in cm.tree_leaves(state["params"])]
+    data = SyntheticTokens(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    key, n = (("frame_embeds", cfg.encoder_len) if cfg.family == "encdec"
+              else ("patch_embeds", cfg.n_image_tokens))
+    losses, step_ms, restore_s = [], [], 0.0
+    for i in range(2):
+        if i:       # the resume: the whole state through host memory and back
+            t1 = time.perf_counter()
+            host = cm.tree_map(lambda t: t.to("cpu", copy=True), state)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            state = cm.tree_map(lambda t: t.to(dev), host)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t1
+            if int(state["step"]) != 1:
+                fail(f"8d {name}: the restored state is at step {int(state['step'])}")
+            del host
+        batch = dict(data.next_batch())
+        batch[key] = torch.randn((TRAIN_BATCH, n, cfg.d_model), generator=gen,
+                                 device=dev).to(cfg.torch_dtype)
+        step_fn = train_steps.build_train_step(cfg, opt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        losses.append(float(metrics["loss"]))
+        if metrics["skipped"] or not math.isfinite(losses[-1]):
+            fail(f"8d {name}: step {i + 1} loss {losses[-1]}, skipped {metrics['skipped']}")
+    peak = torch.cuda.max_memory_allocated()
+    paths = param_paths(state["params"])
+    changed = {}
+    for path, old, new, mu in zip(paths, before, cm.tree_leaves(state["params"]),
+                                  cm.tree_leaves(state["opt_state"]["mu"])):
+        if not bool(torch.isfinite(mu).all()) or not bool((mu != 0).any()):
+            fail(f"8d {name}: the moments of {path} did not move (no gradient reached it)")
+        changed[path] = float((new.cpu() != old).float().mean())
+    frozen = [q for q, f in changed.items() if f == 0.0]
+    if [q for q in frozen if not q.endswith("scale")]:
+        fail(f"8d {name}: these weight leaves did not change: {frozen}")
+    res = {"config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                      "n_encoder_layers": cfg.n_encoder_layers, "d_model": cfg.d_model,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
+                      "remat": cfg.remat, "M": 2, "K_iters": 8, "batch": TRAIN_BATCH,
+                      "seq": TRAIN_SEQ, key: n},
+           "n_params": n_params, "losses": losses, "step_ms": step_ms,
+           "restore_s": restore_s, "max_memory_allocated_gb": peak / 1e9,
+           "unchanged_leaves": frozen, "seconds": time.time() - t0}
+    print(f"phase 8d: {cfg.name} ({cfg.n_layers} layers"
+          + (f" + {cfg.n_encoder_layers} encoder layers" if cfg.n_encoder_layers else "")
+          + f", d_model {cfg.d_model}, {cfg.dtype}, remat {cfg.remat}, fake-quant M=2, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens + {n} {key}): {n_params} params; losses "
+          f"{[round(x, 4) for x in losses]}; step {step_ms[0]:.1f} ms, resumed step "
+          f"{step_ms[1]:.1f} ms after a {restore_s:.2f} s round trip of the whole state "
+          f"through host memory; every leaf's moments moved; max_memory_allocated "
+          f"{peak / 1e9:.2f} GB; leaves unchanged in bf16 {frozen}; {res['seconds']:.1f} s")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def train_phase(dev, out_dir: Path) -> dict:
-    """Phase 8: training on the card (8a CNN-A, 8b gemma-2b, 8c Trainer)."""
+    """Phase 8: training on the card (8a CNN-A, 8b gemma-2b, 8c Trainer,
+    8d whisper-medium and internvl2-2b)."""
     t0 = time.time()
     cnn_a = train_cnn_a(dev)
     gemma = train_gemma(dev)
     gc.collect()
     torch.cuda.empty_cache()
     resume = train_resume(dev, out_dir)
+    wide = {name: train_wide(name, dev) for name in TRAIN_WIDE}
     print(f"phase 8: {time.time() - t0:.1f} s")
-    return {"cnn_a": cnn_a, "gemma": gemma, "trainer": resume}
+    return {"cnn_a": cnn_a, "gemma": gemma, "trainer": resume, "wide": wide}
 
 
 # ---------------------------------------------------------------------------
@@ -4252,6 +4707,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (launches[name] + lm["serve"]["launches"][name]
+                         + lm["bf16_launches"][name]
                          + train["cnn_a"]["launches"][name] + fuzz_launches[name]
                          + soak_launches[name] + moe_launches[name] + ssm_launches[name]
                          + encdec_launches[name] + mesh_launches[name]
@@ -4266,6 +4722,7 @@ def main() -> int:
             "library_ms": tot["library_ms"], "instr_ms": tot["instr_ms"],
             "cnn_launches": launches[name], "serve_launches": serve["launches"][name],
             "lm_launches": lm["serve"]["launches"][name],
+            "lm_bf16_launches": lm["bf16_launches"][name],
             "train_launches": train["cnn_a"]["launches"][name],
             "fuzz_launches": fuzz_launches[name], "soak_launches": soak_launches[name],
             "moe_launches": moe_launches[name], "ssm_launches": ssm_launches[name],
@@ -4280,7 +4737,8 @@ def main() -> int:
         indent=1))
     print("timings: ms, plain_ms, library_ms and bound_ms sum one forward of CNN-A "
           "(batch 64) and one of MobileNetV1-224 (batch 16); launches counts phases 2 "
-          "and 3 (three calls of each network), phase 7's serving of gemma-2b, phase "
+          "and 3 (three calls of each network), phase 7's serving of gemma-2b (fp32) and "
+          "of the dense LMs in bf16 (7b-7d), phase "
           "8a's execute of the retrained CNN-A, phase 9a's fuzz, phase 9c's soaks, phase "
           "10's serving of DeepSeek-V3 and grok-1, phase 11's of mamba2-2.7b and zamba2-7b, "
           "phase 12's of whisper-medium and internvl2-2b, phases 13 and 14's ranks and phase "

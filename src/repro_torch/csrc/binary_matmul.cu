@@ -37,7 +37,14 @@
 // 8 (a byte that straddles two groups takes each k's own alphas), chunks
 // with no rows (K < 8*KSPLIT) and m_active < M without padding any buffer.
 // m_active is a template argument (1..4) so the per-level registers stay
-// registers.
+// registers.  x is read in the caller's dtype, fp32 or bf16 (XT, a template
+// argument, as the TPU kernel reads x_ref in the caller's dtype and casts
+// it in its body): a bf16 element is widened to fp32 as it is staged (its
+// 16 bits become the high half of the fp32 word, which is exact), so a bf16
+// x gives the bits an fp32 copy of it would, and moves half the x bytes.
+// Where K is even and x 4-byte aligned, bf16 x is read two elements per
+// 32-bit load (half the loads of one element per lane, which were 1-15 %
+// slower than fp32 x at the LM shapes) and staged as a float2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,11 +54,23 @@ constexpr int KSPLIT = 8;      // reduction chunks; part of the arithmetic, not 
 constexpr int TILE_K = 32;     // k staged per warp at a time
 constexpr int NB = TILE_K / 8; // packed bytes per staged tile
 
+// How x is read (XT): float, fp32 x, one element per lane; uint16_t, bf16
+// x, one element per lane; uint32_t, bf16 x read two elements per 32-bit
+// load (K even and x 4-byte aligned), so half the lanes' loads cover a row.
+template <typename XT> constexpr bool kPairs = false;
+template <> constexpr bool kPairs<uint32_t> = true;
+
+// one element of x as fp32: fp32 as it is, bf16 (its bits, uint16_t) widened
+__device__ __forceinline__ float load_x(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_x(const uint16_t* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(p)) << 16);
+}
+
 // blockDim = (cols, KSPLIT); grid = (ceil(T / R), ceil(N / cols));
 // dynamic shared memory: R * cols * KSPLIT floats.
-template <int R, int MA>
+template <typename XT, int R, int MA>
 __global__ void __launch_bounds__(512) binary_matmul_kernel(
-    const float* __restrict__ x, const uint8_t* __restrict__ bp,
+    const XT* __restrict__ x, const uint8_t* __restrict__ bp,
     const float* __restrict__ alpha, float* __restrict__ out, int T, int K,
     int N, int G, int gs) {
   extern __shared__ float4 smem4[];
@@ -89,13 +108,27 @@ __global__ void __launch_bounds__(512) binary_matmul_kernel(
         an[m] = g + 1 < G ? __ldg(alpha + ((int64_t)m * G + g + 1) * N + nn) : 0.f;
       }
     };
-    float nx[R];
+    // the next tile of x in registers: element r of nx is row r's at
+    // k = kt + lane; with pairs, word j of nw is row (32 j + lane) / 16's
+    // two elements at k = kt + 2 ((32 j + lane) % 16)
+    constexpr int P = (R + 1) / 2;
+    float nx[kPairs<XT> ? 1 : R];
+    unsigned nw[P];
     unsigned nb[NB][MA];
     auto fetch = [&](int kt) {
+      if constexpr (kPairs<XT>) {
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        nx[r] = (t0 + r < T && kt + lane < k1)
-                    ? __ldg(x + (int64_t)(t0 + r) * K + kt + lane) : 0.f;
+        for (int j = 0; j < P; ++j) {
+          const int row = (32 * j + lane) >> 4, kp = 2 * (lane & 15);
+          nw[j] = (row < R && t0 + row < T && kt + kp < k1)
+                      ? __ldg(x + ((int64_t)(t0 + row) * K + kt + kp) / 2) : 0u;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          nx[r] = (t0 + r < T && kt + lane < k1)
+                      ? load_x(x + (int64_t)(t0 + r) * K + kt + lane) : 0.f;
+      }
 #pragma unroll
       for (int jb = 0; jb < NB; ++jb)
 #pragma unroll
@@ -106,8 +139,18 @@ __global__ void __launch_bounds__(512) binary_matmul_kernel(
     fetch(k0);
     for (int kt = k0; kt < k1; kt += TILE_K) {
       __syncwarp();
+      if constexpr (kPairs<XT>) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) xs[r * TILE_K + lane] = nx[r];
+        for (int j = 0; j < P; ++j) {
+          const int row = (32 * j + lane) >> 4, kp = 2 * (lane & 15);
+          if (row < R)
+            *reinterpret_cast<float2*>(xs + row * TILE_K + kp) =
+                make_float2(__uint_as_float(nw[j] << 16), __uint_as_float(nw[j] & 0xffff0000u));
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) xs[r * TILE_K + lane] = nx[r];
+      }
       __syncwarp();
       unsigned bytes[NB][MA];
 #pragma unroll
@@ -178,54 +221,70 @@ __global__ void __launch_bounds__(512) binary_matmul_kernel(
   }
 }
 
-template <int R, int MA>
-cudaError_t launch_plan(int cols, int T, int K, int N, int G, int gs, const float* x,
+template <typename XT, int R, int MA>
+cudaError_t launch_plan(int cols, int T, int K, int N, int G, int gs, const XT* x,
                         const uint8_t* bp, const float* alpha, float* out,
                         cudaStream_t stream) {
   const dim3 block(cols, KSPLIT);
   const dim3 grid((T + R - 1) / R, (N + cols - 1) / cols);
   const size_t shmem = sizeof(float) * R * cols * KSPLIT;
-  binary_matmul_kernel<R, MA><<<grid, block, shmem, stream>>>(x, bp, alpha, out, T, K,
-                                                              N, G, gs);
+  binary_matmul_kernel<XT, R, MA><<<grid, block, shmem, stream>>>(x, bp, alpha, out, T, K,
+                                                                  N, G, gs);
   return cudaGetLastError();
 }
 
-template <int R>
+template <typename XT, int R>
 cudaError_t launch_levels(int m_active, int cols, int T, int K, int N, int G, int gs,
-                          const float* x, const uint8_t* bp, const float* alpha,
+                          const XT* x, const uint8_t* bp, const float* alpha,
                           float* out, cudaStream_t stream) {
   switch (m_active) {
-    case 1: return launch_plan<R, 1>(cols, T, K, N, G, gs, x, bp, alpha, out, stream);
-    case 2: return launch_plan<R, 2>(cols, T, K, N, G, gs, x, bp, alpha, out, stream);
-    case 3: return launch_plan<R, 3>(cols, T, K, N, G, gs, x, bp, alpha, out, stream);
-    case 4: return launch_plan<R, 4>(cols, T, K, N, G, gs, x, bp, alpha, out, stream);
+    case 1: return launch_plan<XT, R, 1>(cols, T, K, N, G, gs, x, bp, alpha, out, stream);
+    case 2: return launch_plan<XT, R, 2>(cols, T, K, N, G, gs, x, bp, alpha, out, stream);
+    case 3: return launch_plan<XT, R, 3>(cols, T, K, N, G, gs, x, bp, alpha, out, stream);
+    case 4: return launch_plan<XT, R, 4>(cols, T, K, N, G, gs, x, bp, alpha, out, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename XT>
+cudaError_t launch_rows(int rows, int m_active, int cols, int T, int K, int N, int G,
+                        int gs, const void* x, const uint8_t* bp, const float* alpha,
+                        float* out, cudaStream_t stream) {
+  const XT* xt = static_cast<const XT*>(x);
+  switch (rows) {
+    case 1: return launch_levels<XT, 1>(m_active, cols, T, K, N, G, gs, xt, bp, alpha, out, stream);
+    case 2: return launch_levels<XT, 2>(m_active, cols, T, K, N, G, gs, xt, bp, alpha, out, stream);
+    case 4: return launch_levels<XT, 4>(m_active, cols, T, K, N, G, gs, xt, bp, alpha, out, stream);
+    case 8: return launch_levels<XT, 8>(m_active, cols, T, K, N, G, gs, xt, bp, alpha, out, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// x [T, K] f32, bp [M, ceil(K/8), N] u8, alpha [M, G, N] f32, out [T, N] f32,
-// all contiguous on the current device; m_active 1..4.  Tile plan: rows
-// output rows per thread (1, 2, 4 or 8) and cols output columns per block
-// (32 or 64).  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a plan or level count it was not built for).
+// x [T, K] f32 (x_bf16 0) or bf16 (x_bf16 1), bp [M, ceil(K/8), N] u8, alpha
+// [M, G, N] f32, out [T, N] f32, all contiguous on the current device;
+// m_active 1..4.  Tile plan: rows output rows per thread (1, 2, 4 or 8) and
+// cols output columns per block (32 or 64).  Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for a plan, level count or x
+// dtype it was not built for).
 extern "C" int binary_matmul_launch(const void* x, const void* bp,
                                     const void* alpha, void* out, int T, int K,
                                     int N, int G, int group_size, int m_active,
-                                    int rows, int cols, void* stream) {
+                                    int rows, int cols, int x_bf16, void* stream) {
   if (cols != 32 && cols != 64) return (int)cudaErrorInvalidValue;
-  const float* xf = (const float*)x;
   const uint8_t* b8 = (const uint8_t*)bp;
   const float* af = (const float*)alpha;
   float* of = (float*)out;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t rc;
-  switch (rows) {
-    case 1: rc = launch_levels<1>(m_active, cols, T, K, N, G, group_size, xf, b8, af, of, s); break;
-    case 2: rc = launch_levels<2>(m_active, cols, T, K, N, G, group_size, xf, b8, af, of, s); break;
-    case 4: rc = launch_levels<4>(m_active, cols, T, K, N, G, group_size, xf, b8, af, of, s); break;
-    case 8: rc = launch_levels<8>(m_active, cols, T, K, N, G, group_size, xf, b8, af, of, s); break;
+  switch (x_bf16) {
+    case 0: rc = launch_rows<float>(rows, m_active, cols, T, K, N, G, group_size, x, b8, af, of, s); break;
+    case 1:
+      rc = (K % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0)
+               ? launch_rows<uint32_t>(rows, m_active, cols, T, K, N, G, group_size, x, b8, af, of, s)
+               : launch_rows<uint16_t>(rows, m_active, cols, T, K, N, G, group_size, x, b8, af, of, s);
+      break;
     default: rc = cudaErrorInvalidValue;
   }
   return (int)rc;

@@ -109,15 +109,17 @@ def launch(name: str, argtypes: list, *args) -> None:
 
 
 def require(t, name: str, dtype, shape: tuple, device=None) -> None:
-    """Check what a kernel takes: a contiguous CUDA tensor of ``dtype`` and
-    ``shape`` (``None`` entries are free), on ``device`` when given."""
+    """Check what a kernel takes: a contiguous CUDA tensor of ``dtype`` (or
+    of one of a tuple of dtypes) and ``shape`` (``None`` entries are free),
+    on ``device`` when given."""
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got "
                          f"{getattr(t, 'device', type(t))}")
     if device is not None and t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if len(t.shape) != len(shape) or any(
             want is not None and got != want for got, want in zip(t.shape, shape)):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")

@@ -2,9 +2,13 @@
 
 Replaces ``src/repro/kernels/binary_matmul.py`` ``binary_matmul_pallas``:
 ``y[T, N] = sum_{m<m_active} alpha_m ⊙ (x @ B_m)`` over LSB-first packed
-``B_packed [M, ceil(K/8), N]`` with grouped ``alpha [M, G, N]``.  The plain
-version is ``kernels/ref.py binary_matmul_ref``; ``kernels/ops.py`` picks
-between the two by the tensor's device.
+``B_packed [M, ceil(K/8), N]`` with grouped ``alpha [M, G, N]``, x read in
+fp32 or bf16 (``X_DTYPES``: the TPU kernel takes x in the caller's dtype and
+casts it to fp32 in its body; this one widens each bf16 element as it stages
+it, two per 32-bit load where K is even and x 4-byte aligned, so a bf16 x
+gives the bits of ``x.float()``), the sums and y fp32.  The
+plain version is ``kernels/ref.py binary_matmul_ref``; ``kernels/ops.py``
+picks between the two by the tensor's device.
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ from repro_torch.kernels import _build
 
 launches = 0   # kernel launches since the last reset_launch_counts()
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+X_DTYPES = (torch.float32, torch.bfloat16)   # the x the kernel reads (its x_bf16 flag)
 
 
 KSPLIT = 8             # reduction chunks of the kernel (csrc/binary_matmul.cu)
@@ -45,12 +50,13 @@ def check_plan(plan: tuple[int, int]) -> None:
 def launch(x: torch.Tensor, B_packed: torch.Tensor, alpha: torch.Tensor, *,
            K: int, group_size: int, m_active: int,
            plan: tuple[int, int]) -> torch.Tensor:
-    """x [T, K] f32 -> y [T, N] f32 on x's card; every argument checked."""
+    """x [T, K] f32 or bf16 -> y [T, N] f32 on x's card; every argument
+    checked."""
     global launches
     T = x.shape[0]
     M, K8, N = B_packed.shape
     G = alpha.shape[1]
-    _build.require(x, "x", torch.float32, (T, K))
+    _build.require(x, "x", X_DTYPES, (T, K))
     _build.require(B_packed, "B_packed", torch.uint8, (M, -(-K // 8), N), x.device)
     _build.require(alpha, "alpha", torch.float32, (M, G, N), x.device)
     if G * group_size != K:
@@ -65,7 +71,7 @@ def launch(x: torch.Tensor, B_packed: torch.Tensor, alpha: torch.Tensor, *,
     with torch.cuda.device(x.device):
         _build.launch("binary_matmul", _ARGTYPES, x.data_ptr(), B_packed.data_ptr(),
                       alpha.data_ptr(), out.data_ptr(), T, K, N, G, group_size,
-                      m_active, plan[0], plan[1],
+                      m_active, plan[0], plan[1], int(x.dtype == torch.bfloat16),
                       torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     return out

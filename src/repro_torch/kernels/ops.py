@@ -121,35 +121,47 @@ def binary_matmul(x: torch.Tensor, B_packed: torch.Tensor, alpha: torch.Tensor, 
                   K: int, group_size: int, m_active: int | None = None,
                   plan: tuple[int, int] | None = None) -> torch.Tensor:
     """y[..., N] = sum_{m<m_active} alpha_m ⊙ (x[..., K] @ B_m), summed in fp32
-    and returned in x's dtype (as the JAX wrapper does).
+    and returned in x's dtype (as the JAX wrapper does).  The kernel reads
+    an fp32 or bf16 x as it is (``binary_matmul.X_DTYPES``); any other
+    dtype is cast to fp32 first.
 
     A ``meta`` x (the dry run) takes the card's route up to the launch and
     gets ``torch.empty`` of the result's shape in place of the kernel's
     output; no kernel and no plain version runs.  On the card and on
-    ``meta`` each call is reported to an active ``CostCounter``."""
+    ``meta`` each call is reported to an active ``CostCounter``, x counted
+    at the width the kernel reads."""
     M, _, N = B_packed.shape
     m = min(m_active or M, M)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K)
     if x.device.type == "meta":
-        x2 = x2.to(torch.float32).contiguous()
+        x2 = _kernel_x(x2)
         y = torch.empty((x2.shape[0], N), dtype=torch.float32, device="meta")
-        _report(x2.shape[0], K, N, B_packed, alpha)
+        _report(x2, N, B_packed, alpha)
     elif not _on_card(x):
         y = kref.binary_matmul_ref(x2, B_packed, alpha, K=K, group_size=group_size,
                                    m_active=m)
     else:
-        x2 = x2.to(torch.float32).contiguous()
+        x2 = _kernel_x(x2)
         y = bmk.launch(x2, B_packed, alpha, K=K, group_size=group_size, m_active=m,
                        plan=plan or pick_matmul_plan(x2.shape[0], N))
         if reporters:
-            _report(x2.shape[0], K, N, B_packed, alpha)
+            _report(x2, N, B_packed, alpha)
     return y.reshape(*lead, N).to(x.dtype)
 
 
-def _report(T: int, K: int, N: int, B_packed: torch.Tensor, alpha: torch.Tensor) -> None:
+def _kernel_x(x2: torch.Tensor) -> torch.Tensor:
+    """x as the matmul kernel reads it: contiguous, in its own dtype where
+    the kernel reads that dtype, else cast to fp32."""
+    if x2.dtype not in bmk.X_DTYPES:
+        x2 = x2.to(torch.float32)
+    return x2.contiguous()
+
+
+def _report(x2: torch.Tensor, N: int, B_packed: torch.Tensor, alpha: torch.Tensor) -> None:
+    T, K = x2.shape
     for counter in reporters:
-        counter.binary_matmul(T, K, N, B_packed, alpha)
+        counter.binary_matmul(T, K, N, B_packed, alpha, x_itemsize=x2.element_size())
 
 
 def binary_conv2d(x: torch.Tensor, B_tap_packed: torch.Tensor, alpha: torch.Tensor,

@@ -90,11 +90,13 @@ def _flop_class(dtype: torch.dtype) -> str:
 
 
 def binary_matmul_work(T: int, K: int, N: int, B_packed: torch.Tensor,
-                       alpha: torch.Tensor) -> tuple[int, int]:
+                       alpha: torch.Tensor, x_itemsize: int = 4) -> tuple[int, int]:
     """(fp-equivalent MACs, bytes) of one ``binary_matmul`` call: x [T, K]
-    read and y [T, N] written in fp32, the packed levels and the alphas read
-    once (``chip_smoke.py``'s per-call bound)."""
-    return T * K * N, 4 * T * K + B_packed.numel() + 4 * alpha.numel() + 4 * T * N
+    read at ``x_itemsize`` bytes an element (4 fp32, 2 bf16) and y [T, N]
+    written in fp32, the packed levels and the alphas read once
+    (``chip_smoke.py``'s per-call bound)."""
+    return (T * K * N, x_itemsize * T * K + B_packed.numel() + 4 * alpha.numel()
+            + 4 * T * N)
 
 
 class CostCounter(TorchDispatchMode):
@@ -149,9 +151,10 @@ class CostCounter(TorchDispatchMode):
             self._live.discard(key)
             self.live_bytes -= n
 
-    def binary_matmul(self, T: int, K: int, N: int, B_packed, alpha) -> None:
+    def binary_matmul(self, T: int, K: int, N: int, B_packed, alpha,
+                      x_itemsize: int = 4) -> None:
         """One ``binary_matmul`` call (reported by ``kernels/ops.py``)."""
-        macs, nbytes = binary_matmul_work(T, K, N, B_packed, alpha)
+        macs, nbytes = binary_matmul_work(T, K, N, B_packed, alpha, x_itemsize)
         self.binary["calls"] += 1
         self.binary["macs"] += macs
         self.binary["bytes"] += nbytes

@@ -24,6 +24,7 @@ import threading
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch import resolve_device
 from repro_torch.core import binlinear as bl
@@ -221,8 +222,22 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(params, x: torch.Tensor) -> torch.Tensor:
-    """Logits in fp32 (loss numerics)."""
-    return x.to(torch.float32) @ params["table"].to(torch.float32).T
+    """Logits in fp32 (loss numerics).  Over DTensors, where ``x`` is split
+    over its sequence on ``"model"`` (the SSM and hybrid residual) or the
+    table is whole on every rank (a vocab the model axis does not divide),
+    each rank multiplies its own rows of ``x`` by the whole table
+    (``placement.rows_times_whole``; a vocab-split table is gathered): the
+    logits keep ``x``'s rows and the loss needs no gather of the vocab."""
+    table = params["table"]
+    if pl.is_dtensor(x) and pl.is_dtensor(table) and x.ndim > 1 and all(
+            isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim < x.ndim - 1)
+            for p in x.placements):
+        m = pl.model_dim(x.device_mesh)
+        if all(isinstance(p, Replicate) for p in table.placements) or (
+                m is not None and isinstance(x.placements[m], Shard)):
+            whole = table.redistribute(table.device_mesh, [Replicate()] * table.device_mesh.ndim)
+            return pl.rows_times_whole(x.to(torch.float32), whole.to(torch.float32).T)
+    return x.to(torch.float32) @ table.to(torch.float32).T
 
 
 # ---------------------------------------------------------------------------

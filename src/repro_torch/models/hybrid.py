@@ -62,7 +62,9 @@ def _shared_block(shared, x, x0, cfg: ArchConfig, *, positions, mask):
 def _layer(layer, shared, x, x0, cfg_i: ArchConfig, point: bool, positions, mask):
     """Mamba2 layer i, then the shared block where layer i ends a period."""
     h = cm.rms_norm(layer["norm"], x, cfg_i.norm_eps)
-    x = x + ssm_mod.mamba2_forward(layer["block"], h, cfg_i)
+    # the block's sequence-split output gathered: the shared attention
+    # block and its FFN take the residual on the batch's rows
+    x = x + cm.shard(ssm_mod.mamba2_forward(layer["block"], h, cfg_i), "batch", "seq", None)
     if point:
         x = _shared_block(shared, x, x0, cfg_i, positions=positions, mask=mask)
     return x
@@ -78,7 +80,8 @@ def hybrid_hidden(params, cfg: ArchConfig, tokens):
         args = (cm.tree_index(params["mamba_layers"], i), params["shared"], x, x0,
                 cm.layer_quant_cfg(cfg, i), _is_point(cfg, i), positions, mask)
         x = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
-    return cm.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    # the final norm and the head on each model rank's tokens (``cm.unembed``)
+    return cm.rms_norm(params["final_norm"], ssm_mod.split_sequence(x), cfg.norm_eps)
 
 
 def hybrid_forward(params, cfg: ArchConfig, tokens):

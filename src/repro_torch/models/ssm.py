@@ -15,16 +15,40 @@ alike.  ``mamba2_decode`` writes the cache in place (the JAX package
 returns a new one): the new state is computed from the old cache first,
 then ``torch.where(update_mask, new, old)`` is copied back, so a masked row
 keeps its bits.
+
+Over a mesh (DTensor activations, ``launch/steps.py``) everything from the
+split of ``in_proj``'s output to the gated norm runs on plain local tensors
+(:class:`_Part`): each rank takes its batch rows, as the mesh dims other
+than ``"model"`` split them, and its SSM heads where ``"model"`` divides
+them (the JAX rules put the state's heads on ``"model"``); B and C (one
+group) are whole on every rank.  ``in_proj``'s column split does not line
+up with its ``[z, x, B, C, dt]`` segments, so each rank gathers the
+projection's columns whole over ``"model"`` and keeps its heads' z, x and
+dt columns and all of B and C; the depth-wise conv, per channel, runs on
+those channels.  y and z go back as DTensors split on ``"model"`` by head
+for the gated norm and ``out_proj``, whose product is then a partial sum
+over ``"model"``: a full-sequence block reduce-scatters it over the
+sequence (``split_sequence``), so the residual stream after it, and the
+norms and the LM head, run on each model rank's tokens; the block puts
+its input back on the batch's rows (``common.shard``), which also gathers
+that split.  The
+decode's state is read from and written to the cache's own shard where the
+cache is placed as the part (its heads on ``"model"``), else moved there
+and back.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common as cm
 from repro_torch.models import attention as attn
+from repro_torch.sharding import placement as pl
 
 
 def _dims(cfg: ArchConfig):
@@ -141,27 +165,113 @@ def ssd_chunked(xh, dt, A, Bm, Cm, D, chunk: int, *, return_state: bool = False)
     return y
 
 
+@dataclasses.dataclass(frozen=True)
+class _Part:
+    """The part of a Mamba2 block's scan that this rank computes: its batch
+    rows (``rows``: per mesh dim ``Shard(0)`` or ``Replicate()``) and the
+    SSM heads ``[h0, h1)``.  ``mesh`` None: plain tensors, every row and
+    head, and every method the identity."""
+    mesh: object
+    rows: tuple
+    h0: int
+    h1: int
+    split_heads: bool
+
+    def placements(self, heads_dim=None) -> tuple:
+        """A part's tensor's placements: its rows, and its heads dim on
+        ``"model"`` where the heads are split (``heads_dim`` None: whole)."""
+        m = pl.model_dim(self.mesh)
+        return tuple(Shard(heads_dim) if i == m and self.split_heads and heads_dim is not None
+                     else p for i, p in enumerate(self.rows))
+
+    def local(self, t, heads_dim=None):
+        """A batched ``t`` as the part's local tensor (its rows, and its
+        heads where ``heads_dim`` names them; every other dim whole)."""
+        if self.mesh is None:
+            return t
+        return pl.to_local_part(t, self.mesh, self.placements(heads_dim), self._split())
+
+    def whole(self, t):
+        """A parameter whole on every rank, as a local tensor whose gradient
+        the ranks' parts sum."""
+        if self.mesh is None:
+            return t
+        return pl.to_local_part(t, self.mesh, (Replicate(),) * self.mesh.ndim, self._split())
+
+    def _split(self) -> tuple:
+        m = pl.model_dim(self.mesh)
+        return tuple(isinstance(p, Shard) or (i == m and self.split_heads)
+                     for i, p in enumerate(self.rows))
+
+    def back(self, t: torch.Tensor, shape, heads_dim=None):
+        """The part's local ``t`` as the DTensor of global ``shape``."""
+        if self.mesh is None:
+            return t
+        return pl.from_local(t, self.mesh, self.placements(heads_dim), shape)
+
+    def write(self, dst, value: torch.Tensor, heads_dim=None) -> None:
+        """Cache leaf ``dst`` set in place to the part's ``value``."""
+        if self.mesh is None:
+            dst.copy_(value)
+        else:
+            pl.write_part(dst, value, self.placements(heads_dim))
+
+    def channels(self, t: torch.Tensor, cfg: ArchConfig):
+        """The part's channels of a ``[..., conv_ch]`` tensor of the conv
+        stream ``[x, B, C]``: its heads' x channels, then B and C whole."""
+        d_inner, H, _ = _dims(cfg)
+        if (self.h0, self.h1) == (0, H):
+            return t
+        p = cfg.ssm_head_dim
+        return torch.cat([t[..., self.h0 * p: self.h1 * p], t[..., d_inner:]], dim=-1)
+
+
+def _part(cfg: ArchConfig, x) -> _Part:
+    """This rank's part of the scan over the block's input ``x``: all of it
+    on a plain tensor; on a DTensor the rows ``x``'s batch is split into
+    (the residual stream's: ``in_proj``'s output may come back whole on
+    the data axes from an FSDP product), and the heads split on ``"model"``
+    where it divides them and the block has one group (B and C are then
+    whole on every rank)."""
+    _, H, _ = _dims(cfg)
+    if not pl.is_dtensor(x):
+        return _Part(None, (), 0, H, False)
+    mesh = x.device_mesh
+    n = pl.model_size(mesh)
+    if n == 1 or H % n or cfg.ssm_ngroups != 1:
+        return _Part(mesh, pl.row_placements(x, batch_only=True), 0, H, False)
+    r, k = mesh.get_local_rank(pl.model_dim(mesh)), H // n
+    return _Part(mesh, pl.row_placements(x, batch_only=True), r * k, (r + 1) * k, True)
+
+
 def _mamba2_seq(params, x: torch.Tensor, cfg: ArchConfig, *, want_cache: bool):
     """Shared full-sequence core of forward (train) and prefill (serve)."""
     B, L, _ = x.shape
-    d_inner, H, _ = _dims(cfg)
-    n, g = cfg.ssm_state, cfg.ssm_ngroups
+    d_inner, H, conv_ch = _dims(cfg)
+    n, g, hd = cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_head_dim
+    x = cm.shard(x, "batch", "seq", None)      # the residual's rows (its sequence gathered)
     proj = cm.linear(params["in_proj"], x, cfg.quant)
-    z, xh, Bm, Cm, dt_raw = _split_proj(cfg, proj)
+    part = _part(cfg, x)
+    h0, h1 = part.h0, part.h1
+    z, xh, Bm, Cm, dt_raw = _split_proj(cfg, part.local(proj))
+    b, ci = xh.shape[0], (h1 - h0) * hd                          # local rows, x channels
     xBC_pre = torch.cat([xh, Bm, Cm], dim=-1)                    # pre-conv stream
-    xBC = _causal_dconv(xBC_pre, params["conv_w"], params["conv_b"])
-    xh = xBC[..., :d_inner].reshape(B, L, H, cfg.ssm_head_dim)
-    Bm = xBC[..., d_inner: d_inner + g * n].reshape(B, L, g, n)
-    Cm = xBC[..., d_inner + g * n:].reshape(B, L, g, n)
+    xBC = _causal_dconv(part.channels(xBC_pre, cfg),
+                        part.channels(part.whole(params["conv_w"]), cfg),
+                        part.channels(part.whole(params["conv_b"]), cfg))
+    xh = xBC[..., :ci].reshape(b, L, h1 - h0, hd)
+    Bm = xBC[..., ci: ci + g * n].reshape(b, L, g, n)
+    Cm = xBC[..., ci + g * n:].reshape(b, L, g, n)
     # F.softplus returns v past 20, where fp32 rounds jax's logaddexp(v, 0) to v too
-    dt = F.softplus(dt_raw.to(torch.float32) + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
+    dt = F.softplus(dt_raw[..., h0:h1].to(torch.float32) + part.whole(params["dt_bias"])[h0:h1])
+    A = -torch.exp(part.whole(params["A_log"])[h0:h1])
     # the largest divisor of L that fits the configured chunk: any prompt
     # length works (a prime L degrades to chunk 1, still exact)
     chunk = min(cfg.ssm_chunk, L)
     while L % chunk:
         chunk -= 1
-    y = ssd_chunked(xh, dt, A, Bm, Cm, params["D"], chunk, return_state=want_cache)
+    y = ssd_chunked(xh, dt, A, Bm, Cm, part.whole(params["D"])[h0:h1], chunk,
+                    return_state=want_cache)
     cache = None
     if want_cache:
         y, final_state = y
@@ -169,10 +279,30 @@ def _mamba2_seq(params, x: torch.Tensor, cfg: ArchConfig, *, want_cache: bool):
         # token-wise decode keeps (zero-padded when L < width-1)
         w1 = cfg.ssm_conv_width - 1
         conv_state = F.pad(xBC_pre, (0, 0, w1, 0))[:, L:]
-        cache = {"ssm_state": final_state, "conv_state": conv_state.to(cfg.torch_dtype)}
-    y = y.reshape(B, L, d_inner)
-    y = cm.rms_norm_gated(params["norm"], y.to(x.dtype), z, cfg.norm_eps)
-    return cm.linear(params["out_proj"], y, cfg.quant), cache
+        cache = {"ssm_state": part.back(final_state, (B, H, hd, n), heads_dim=1),
+                 "conv_state": part.back(conv_state.to(cfg.torch_dtype), (B, w1, conv_ch))}
+    y = part.back(y.reshape(b, L, ci).to(x.dtype), (B, L, d_inner), heads_dim=2)
+    z = part.back(z[..., h0 * hd: h1 * hd], (B, L, d_inner), heads_dim=2)
+    y = cm.rms_norm_gated(params["norm"], y, z, cfg.norm_eps)
+    return split_sequence(cm.linear(params["out_proj"], y, cfg.quant)), cache
+
+
+def split_sequence(x):
+    """``x [B, L, D]`` on its batch rows and its sequence split on
+    ``"model"`` where L divides (sequence parallelism): the block's output,
+    a partial sum over ``"model"`` (each rank's heads' rows of
+    ``out_proj``), is reduce-scattered, so the residual stream after the
+    block, and the norms and the LM head after it, run on each model rank's
+    tokens, not whole on every model rank.  A plain tensor, or a mesh
+    without a ``"model"`` split, as it is."""
+    if not pl.is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    m, n = pl.model_dim(mesh), pl.model_size(mesh)
+    if n == 1 or x.shape[1] % n:
+        return x
+    rows = pl.row_placements(x, batch_only=True)
+    return x.redistribute(mesh, tuple(Shard(1) if i == m else p for i, p in enumerate(rows)))
 
 
 def mamba2_forward(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -200,6 +330,15 @@ def init_mamba2_cache(cfg: ArchConfig, batch: int, device="cuda") -> dict:
     return attn.init_from_specs(mamba2_cache_specs(cfg, batch), device)
 
 
+def recurrent_step(old, dA, dt, xh, Bv, Cv, D):
+    """One token of the SSD recurrence on plain tensors: the state
+    ``old [b, h, p, n]`` decayed by ``dA [b, h]`` plus the rank-1 input
+    ``(dt·x) ⊗ B``, then ``y = state·C + D·x`` -> (state, y [b, h, p])."""
+    state = old * dA[..., None, None] + (dt[..., None] * xh)[..., None] * Bv[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", state, Cv) + D[None, :, None] * xh
+    return state, y
+
+
 def mamba2_decode(params, x: torch.Tensor, cfg: ArchConfig, cache: dict,
                   update_mask: torch.Tensor | None = None):
     """One-token recurrent update. x: [B, 1, D] -> (y [B, 1, D], cache), the
@@ -213,34 +352,41 @@ def mamba2_decode(params, x: torch.Tensor, cfg: ArchConfig, cache: dict,
     """
     B = x.shape[0]
     d_inner, H, _ = _dims(cfg)
-    n, g = cfg.ssm_state, cfg.ssm_ngroups
+    n, g, hd = cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_head_dim
     f32 = torch.float32
+    x = cm.shard(x, "batch", None, None)       # the batch's rows, whatever placed them before
     proj = cm.linear(params["in_proj"], x[:, 0], cfg.quant)     # [B, proj]
-    z, xh, Bm, Cm, dt_raw = _split_proj(cfg, proj)
-    xBC_new = torch.cat([xh, Bm, Cm], dim=-1)                   # [B, conv_ch]
-    window = torch.cat([cache["conv_state"].to(f32), xBC_new[:, None, :].to(f32)],
-                       dim=1)                                   # [B, w, ch]
-    conv = torch.einsum("bwc,wc->bc", window, params["conv_w"]) + params["conv_b"]
+    part = _part(cfg, x)
+    h0, h1 = part.h0, part.h1
+    z, xh, Bm, Cm, dt_raw = _split_proj(cfg, part.local(proj))
+    b, ci = xh.shape[0], (h1 - h0) * hd
+    xBC_new = torch.cat([xh, Bm, Cm], dim=-1)                   # [b, conv_ch]
+    conv_old = part.local(cache["conv_state"])                  # [b, w-1, conv_ch]
+    window = torch.cat([conv_old.to(f32), xBC_new[:, None, :].to(f32)], dim=1)  # [b, w, ch]
+    # the conv on the rank's heads' x channels and on B and C whole
+    conv = torch.einsum("bwc,wc->bc", part.channels(window, cfg),
+                        part.channels(part.whole(params["conv_w"]), cfg)) \
+        + part.channels(part.whole(params["conv_b"]), cfg)
     xBC = F.silu(conv)
-    xh = xBC[:, :d_inner].reshape(B, H, cfg.ssm_head_dim)
-    rep = H // g
-    Bv = xBC[:, d_inner: d_inner + g * n].reshape(B, g, n).repeat_interleave(rep, dim=1)
-    Cv = xBC[:, d_inner + g * n:].reshape(B, g, n).repeat_interleave(rep, dim=1)
-    dt = F.softplus(dt_raw.to(f32) + params["dt_bias"])          # [B, H]
-    A = -torch.exp(params["A_log"])
-    dA = torch.exp(dt * A[None, :])                             # [B, H]
-    old = cache["ssm_state"]
-    state = old * dA[..., None, None] + (dt[..., None] * xh)[..., None] * Bv[:, :, None, :]
-    y = torch.einsum("bhpn,bhn->bhp", state, Cv) + params["D"][None, :, None] * xh
-    y = cm.rms_norm_gated(params["norm"], y.reshape(B, d_inner).to(x.dtype), z, cfg.norm_eps)
-    # on the batch's rows (a state placed otherwise makes y whole on them)
+    xh = xBC[:, :ci].reshape(b, h1 - h0, hd)
+    Bv = xBC[:, ci: ci + g * n].reshape(b, g, n).repeat_interleave(H // g, dim=1)[:, h0:h1]
+    Cv = xBC[:, ci + g * n:].reshape(b, g, n).repeat_interleave(H // g, dim=1)[:, h0:h1]
+    dt = F.softplus(dt_raw[:, h0:h1].to(f32) + part.whole(params["dt_bias"])[h0:h1])  # [b, h]
+    A = -torch.exp(part.whole(params["A_log"])[h0:h1])
+    dA = torch.exp(dt * A[None, :])                             # [b, h]
+    old = part.local(cache["ssm_state"], heads_dim=1)           # [b, h, p, n]
+    state, y = recurrent_step(old, dA, dt, xh, Bv, Cv, part.whole(params["D"])[h0:h1])
+    y = part.back(y.reshape(b, ci).to(x.dtype), (B, d_inner), heads_dim=1)
+    z = part.back(z[:, h0 * hd: h1 * hd], (B, d_inner), heads_dim=1)
+    y = cm.rms_norm_gated(params["norm"], y, z, cfg.norm_eps)
+    # whole on "model" before out_proj: one token has no sequence to split
     y = cm.shard(y, "batch", None)
     out = cm.linear(params["out_proj"], y, cfg.quant)[:, None, :]
-    new_conv = window[:, 1:].to(cache["conv_state"].dtype)
+    new_conv = window[:, 1:].to(conv_old.dtype)
     if update_mask is not None:
-        keep = update_mask.to(torch.bool)
+        keep = part.local(update_mask.to(torch.bool))
         state = torch.where(keep[:, None, None, None], state, old)
-        new_conv = torch.where(keep[:, None, None], new_conv, cache["conv_state"])
-    old.copy_(state)
-    cache["conv_state"].copy_(new_conv)
+        new_conv = torch.where(keep[:, None, None], new_conv, conv_old)
+    part.write(cache["ssm_state"], state, heads_dim=1)
+    part.write(cache["conv_state"], new_conv)
     return out, cache

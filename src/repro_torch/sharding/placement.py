@@ -28,6 +28,16 @@ propagation and works on a rank's local shard:
     around its score and value products merge and split the heads and
     head dims, which DTensor (torch 2.11) refuses to do on a split dim;
     :func:`whole_rows` does the same for one DTensor and keeps it one;
+  * :func:`to_local_part` and :func:`write_part` — a computation that
+    each rank runs on its own part of the work (the Mamba2 scan: its batch
+    rows, as :func:`row_placements` keeps them, and its SSM heads), its
+    operands moved to the part's placements as local tensors (their
+    gradients summed back over the ranks whose parts differ) and a cache
+    written back from the part;
+  * :func:`rows_times_whole` — a product with a weight whole on every
+    rank (an LM head whose vocab the model axis does not divide) on each
+    rank's own rows, however they are split (the Mamba2 blocks' residual:
+    the sequence on ``"model"``);
   * :func:`sum_over_shards` — a global sum from per-shard sums (the
     optimizer's gradient norm; the update itself is elementwise and runs
     on the local shards).
@@ -253,6 +263,41 @@ def batch_local(*ts):
             t = as_dtensor(t, mesh)
         out.append(t.redistribute(mesh, rows if batched else whole).to_local())
     return out, lambda y: from_local(y, mesh, rows, (B,) + tuple(y.shape[1:]))
+
+
+def to_local_part(t, mesh, placements, split) -> torch.Tensor:
+    """``t`` (a DTensor, or a plain tensor that is the same on every rank)
+    moved to ``placements`` and taken as the rank's local tensor, for a
+    computation in which the ranks along mesh dim ``i`` work on different
+    parts where ``split[i]``.  Differentiable: where ``t`` is whole along
+    such a dim, each rank's local gradient is declared a partial sum, so the
+    backward sums the ranks' parts into ``t``'s placements (a reduce-scatter
+    or an all-reduce); a local tensor taken as it is is a view of ``t``'s
+    shard."""
+    grad = tuple(Partial() if s and not isinstance(p, Shard) else p
+                 for p, s in zip(placements, split))
+    return as_dtensor(t, mesh).redistribute(mesh, placements).to_local(grad_placements=grad)
+
+
+def write_part(dst: DTensor, value: torch.Tensor, placements) -> None:
+    """``dst`` set in place to ``value``, the rank's local tensor at
+    ``placements`` (the part it computed): moved to ``dst``'s placements
+    and copied into the rank's own shard, so ``dst`` keeps its storage and
+    placements."""
+    mesh = dst.device_mesh
+    v = from_local(value, mesh, placements, dst.shape).redistribute(mesh, dst.placements)
+    dst.to_local().copy_(v.to_local())
+
+
+def rows_times_whole(x: DTensor, w: DTensor) -> DTensor:
+    """``x @ w`` for a ``w`` whole on every rank and an ``x`` split only
+    along its leading dims: each rank multiplies its own rows, with no
+    DTensor propagation (slow on a 3-D mesh), and the result keeps ``x``'s
+    placements.  Differentiable: ``w``'s local gradient is a partial sum
+    over the mesh dims that split ``x``."""
+    grad = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in x.placements)
+    y = x.to_local() @ w.to_local(grad_placements=grad)
+    return from_local(y, x.device_mesh, x.placements, tuple(x.shape[:-1]) + (w.shape[-1],))
 
 
 def columns_out(y: torch.Tensor, mesh, row_pl, shape) -> DTensor:

@@ -333,18 +333,23 @@ def test_binary_matmul_kernel_at_the_encdec_and_vlm_shapes(card, T, K, N):
         assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
-def _serve_card_vs_cpu(card, arch: str, per_pass: int):
+def _serve_card_vs_cpu(card, arch: str, per_pass: int, dtype: str = "float32"):
     """``reduced(arch)`` with M=2 binary linears served on the card and on
     the CPU (plain versions): 4 requests through ``Server(max_batch=3)``
     with m_active None, 1 and a per-layer schedule; the same tokens and
     stats, logits within rtol 2e-5 / atol 5e-5 (the JAX serving tests'
-    tolerance), ``per_pass`` matmul launches per decode group step."""
+    tolerance), ``per_pass`` matmul launches per decode group step.  In
+    bf16 each request takes one new token (a token that a bf16 rounding
+    flips would change every later step), its logits are held within
+    rtol 2e-2 / atol 2e-2·max|x| (``chip_smoke.py``'s bf16 tolerance) and
+    its token must agree where the CPU's top-2 margin exceeds that bound."""
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import api, common as cm
 
     qc = QuantConfig(mode="binary", M=2, K_iters=2)
-    cfg = reduced(get_config(arch)).replace(dtype="float32", quant=qc)
+    cfg = reduced(get_config(arch)).replace(dtype=dtype, quant=qc)
+    bf16 = dtype == "bfloat16"
     host = api.binarize_model_params(
         cfg, api.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"))
     params = {"cpu": host, "cuda": cm.tree_map(lambda t: t.to(card), host)}
@@ -355,7 +360,7 @@ def _serve_card_vs_cpu(card, arch: str, per_pass: int):
     served = {}
     for where, p in params.items():
         srv = Server(cfg, p, max_batch=3, max_len=32)
-        reqs = [Request(prompt=pr, max_new_tokens=5, m_active=m)
+        reqs = [Request(prompt=pr, max_new_tokens=1 if bf16 else 5, m_active=m)
                 for pr, m in zip(prompts, (None, 1, sched, None))]
         pending = list(reqs)
         while pending or any(s is not None for s in srv.slots):
@@ -370,9 +375,15 @@ def _serve_card_vs_cpu(card, arch: str, per_pass: int):
         served[where] = (reqs, srv.stats)
     assert served["cuda"][1] == served["cpu"][1]
     for a, b in zip(served["cuda"][0], served["cpu"][0]):
-        assert a.out_tokens == b.out_tokens
-        torch.testing.assert_close(torch.from_numpy(a.last_logits),
-                                   torch.from_numpy(b.last_logits), rtol=2e-5, atol=5e-5)
+        got, want = torch.from_numpy(a.last_logits), torch.from_numpy(b.last_logits)
+        if not bf16:
+            assert a.out_tokens == b.out_tokens
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=5e-5)
+            continue
+        bound = 2e-2 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=bound)
+        top2 = torch.topk(want, 2).values
+        assert a.out_tokens == b.out_tokens or float(top2[0] - top2[1]) <= 2 * bound
 
 
 def test_lm_server_on_the_card_matches_the_cpu(card):
@@ -384,6 +395,62 @@ def test_moe_server_on_the_card_matches_the_cpu(card):
     """A reduced DeepSeek-V3 (MLA, 1 leading dense layer + 1 MoE layer with a
     shared expert): 2 layers x 7 matmul launches per decode group step."""
     _serve_card_vs_cpu(card, "deepseek_v3_671b", 14)
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "h2o_danube_1_8b", "qwen3_14b", "codeqwen15_7b"])
+def test_bf16_lm_server_on_the_card_matches_the_cpu(card, arch, monkeypatch):
+    """The reduced dense LMs in their own dtype (bf16; danube's window, 32,
+    wraps under none of these prompts), 2 layers x 7 matmul launches per
+    decode group step, every launch reading its bf16 rows as they are."""
+    seen, real = [], bmk.launch
+
+    def recording(x, *args, **kw):
+        seen.append(x.dtype)
+        return real(x, *args, **kw)
+    monkeypatch.setattr(bmk, "launch", recording)
+    _serve_card_vs_cpu(card, arch, 14, dtype="bfloat16")
+    assert seen and set(seen) == {torch.bfloat16}
+
+
+@pytest.mark.parametrize("K,N", [(2048, 2048), (16384, 2048), (2560, 6912), (5120, 17408)])
+@pytest.mark.parametrize("T", [1, 8, 64])
+def test_binary_matmul_reads_bf16_x_as_its_fp32_copy(card, T, K, N):
+    """bf16 x gives the bits of the same launch on ``x.float()`` at two plans
+    and m_active 1 and 2 (the kernel widens each element exactly as it
+    stages it, two per 32-bit load at these even K); ``ops.binary_matmul``
+    returns that result cast to bf16."""
+    gen = torch.Generator().manual_seed(T + K + N)
+    x = torch.randn(T, K, generator=gen).to(card, torch.bfloat16)
+    packed = bz.pack_bits(_signs(gen, (2, K, N))).to(card)
+    alpha = (_alpha(gen, (2, 1, N)) / K ** 0.5).to(card)
+    for m in (1, 2):
+        for plan in ((1, 32), (8, 64)):
+            kw = dict(K=K, group_size=K, m_active=m, plan=plan)
+            got = bmk.launch(x, packed, alpha, **kw)
+            assert got.dtype == torch.float32
+            assert torch.equal(got, bmk.launch(x.float(), packed, alpha, **kw))
+        y = ops.binary_matmul(x, packed, alpha, K=K, group_size=K, m_active=m)
+        assert y.dtype == torch.bfloat16
+        assert torch.equal(y, got.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        bmk.launch(x.half(), packed, alpha, K=K, group_size=K, m_active=1, plan=(1, 32))
+
+
+@pytest.mark.parametrize("K,offset", [(1001, 0), (2048, 1)])
+def test_binary_matmul_reads_bf16_x_by_elements_where_pairs_do_not_fit(card, K, offset):
+    """An odd K, or an x two bytes off a 4-byte boundary, cannot be read two
+    bf16 elements per 32-bit load: the kernel reads them one by one and
+    still gives the bits of ``x.float()``."""
+    gen = torch.Generator().manual_seed(K + offset)
+    T, N = 8, 96
+    flat = torch.randn(T * K + 1, generator=gen).to(card, torch.bfloat16)
+    x = flat[offset: offset + T * K].view(T, K)
+    packed = bz.pack_bits(bz.pad_rows_to_byte(_signs(gen, (2, K, N)))).to(card)
+    alpha = (_alpha(gen, (2, 1, N)) / K ** 0.5).to(card)
+    for plan in ((1, 32), (4, 64), (8, 32)):
+        kw = dict(K=K, group_size=K, m_active=2, plan=plan)
+        assert torch.equal(bmk.launch(x, packed, alpha, **kw),
+                           bmk.launch(x.float(), packed, alpha, **kw))
 
 
 @pytest.mark.parametrize("arch,per_pass", [("mamba2_2_7b", 4 * 2),

@@ -34,9 +34,20 @@ references computed here while it runs:
     divide).
 
 Each case runs one decode step (4 slots, a random cache) and one prefill
-forward (4 x 8 tokens).  Tolerance rtol 1e-4 / atol 1e-4·max|x| for the
-logits and the cache after the step, the sharded-LM tests' (MKL's sums
-change order when a product's rows or columns are split).
+forward (4 x 8 tokens).  The SSM and hybrid cases' scans (``ssd_chunked``)
+and recurrent updates (``recurrent_step``) must get plain tensors holding
+the rank's part: half the rows (``"data"``) and half the heads
+(``"model"``), B whole (one group).  Tolerance rtol 1e-4 / atol
+1e-4·max|x| for the logits and the cache after the step, the sharded-LM
+tests' (MKL's sums change order when a product's rows or columns are
+split).
+
+The same spawn then trains reduced mamba2 and zamba2 (fp32, fake-quant
+M=2) two SGD steps on a 2x2 (data, model) mesh, the batch's rows split on
+``"data"`` and the SSM heads on ``"model"``, against the single-process
+steps.  Tolerances are ``test_torch_mesh_lm.py``'s: losses rtol 1e-4 and
+each leaf's update within 1e-4 of its own L2 (its docstring says why per
+leaf).
 """
 import threading
 
@@ -67,6 +78,12 @@ for _name, _arch in PACKED.items():
     CASES[_name] = (lambda arch=_arch: tcb.reduced(tcb.get_config(arch)).replace(
         dtype="float32", quant=QuantConfig(mode="binary", M=2, K_iters=2)), 2)
 MOE = ("deepseek", "grok_2_experts")
+TRAIN = ("mamba2", "zamba2")
+
+
+def _train_cfg(name):
+    return tcb.reduced(tcb.get_config(PACKED[name])).replace(
+        dtype="float32", quant=QuantConfig(mode="fake_quant", M=2, K_iters=2))
 
 
 def _inputs(cfg, seed):
@@ -111,11 +128,13 @@ def meshed():
         cfg = make()
         batch, prompt = _inputs(cfg, i)
         cases.append((name, cfg, n_model, batch, prompt))
+    train_cfgs = [(name, _train_cfg(name)) for name in TRAIN]
     out = {}
 
     def spawn():
         try:
-            out["ranks"] = run_local(4, ranks.serve, cases, device="cpu", timeout_s=240)
+            out["ranks"] = run_local(4, ranks.serve, cases, train_cfgs, device="cpu",
+                                     timeout_s=300)
         except BaseException as e:  # noqa: BLE001 — raised below, in the test's thread
             out["ranks"] = e
 
@@ -124,6 +143,12 @@ def meshed():
     try:
         for name, cfg, _, batch, prompt in cases:
             refs[name] = _single_process(cfg, batch, prompt)
+        for name, cfg in train_cfgs:
+            init = tcm.tree_map(lambda t: t.numpy().copy(), ranks.steps.init_train_state(
+                cfg, ranks.optimizer(), device="cpu")["params"])
+            state, losses = ranks.train(cfg, None)
+            refs["train", name] = (losses, tcm.tree_map(lambda t: t.numpy(), state["params"]),
+                                   init, cfg)
     finally:
         t.join()
     if isinstance(out["ranks"], BaseException):
@@ -192,3 +217,46 @@ def test_binary_linears_run_on_column_shards(meshed, name, kind):
         for (x, b), (wx, wb) in zip(got, want):
             assert x[-1] == wx[-1] and b[:-1] == wb[:-1] and b[-1] * 2 == wb[-1]
             assert x[:-1] == ((wx[0] // 2,) + wx[1:-1] if wx[0] % 2 == 0 else wx[:-1])
+
+
+@pytest.mark.parametrize("name", TRAIN)
+def test_ssm_scan_and_update_run_on_each_ranks_part(meshed, name):
+    per_rank, _ = meshed
+    cfg = CASES[name][0]()
+    H = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    n = cfg.ssm_state
+    want = {"ssd": ((SLOTS // 2, PROMPT, H // 2, cfg.ssm_head_dim), (SLOTS // 2, PROMPT, 1, n)),
+            "recurrent": ((SLOTS // 2, H // 2, cfg.ssm_head_dim), (SLOTS // 2, H // 2, n))}
+    for r in per_rank:
+        scans = r[name]["scans"]
+        assert [s[0] for s in scans] == ["recurrent"] * cfg.n_layers + ["ssd"] * cfg.n_layers
+        assert all(not dt and (x, b) == want[k] for k, dt, x, b in scans), scans[:2]
+
+
+@pytest.mark.parametrize("name", TRAIN)
+def test_mesh_train_step_matches_single_process(meshed, name):
+    per_rank, refs = meshed
+    losses, params, init, _ = refs["train", name]
+    for r in per_rank:
+        np.testing.assert_allclose(r["train", name]["losses"], losses, rtol=1e-4)
+        for i, (g, w, p) in enumerate(zip(*(tcm.tree_leaves(t) for t in (
+                r["train", name]["params"], params, init)))):
+            err = float(np.linalg.norm(g.astype(np.float64) - w))
+            upd = float(np.linalg.norm(w.astype(np.float64) - p))
+            assert err <= 1e-4 * upd, (i, w.shape, err, upd)
+
+
+@pytest.mark.parametrize("name", TRAIN)
+def test_train_scan_runs_on_each_ranks_rows_and_heads(meshed, name):
+    """Every ``ssd_chunked`` call of the mesh train steps gets plain
+    tensors: the rank's half of the batch and of the heads, B whole (one
+    group)."""
+    per_rank, refs = meshed
+    cfg = refs["train", name][3]
+    H = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    want = ("ssd", False, (ranks.BATCH // 2, ranks.SEQ, H // 2, cfg.ssm_head_dim),
+            (ranks.BATCH // 2, ranks.SEQ, 1, cfg.ssm_state))
+    for r in per_rank:
+        calls = r["train", name]["scans"]
+        assert len(calls) >= ranks.TRAIN_STEPS * cfg.n_layers
+        assert all(c == want for c in calls), calls[:3]
