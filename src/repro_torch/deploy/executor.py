@@ -12,6 +12,10 @@ CUDA kernel; on a CPU program the same loop runs the plain versions.
 program lives — the yardstick the tests and ``chip_smoke.py`` hold
 ``execute`` against.
 
+While a torch profiler records, ``execute`` runs inside the span
+``executor.execute`` and each instruction inside ``executor.<name>``
+(``repro_torch.tracing``); with none it makes no span.
+
 ``cache_stats`` / ``cache_gauges`` are the counterparts of the JAX
 executor's jit-cache counters for ``testing/soak.py``.  The port has no
 jit cache, so they gauge what could grow under traffic instead: plan picks
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.deploy.program import (BinArrayProgram, ConvInstr, DWConvInstr,
                                         LinearInstr)
 from repro_torch.kernels import _build, ops
@@ -109,17 +114,26 @@ def _check_input(program: BinArrayProgram, x) -> None:
         raise ValueError(f"input is on {x.device}, program on {program.device}")
 
 
-def _run(program: BinArrayProgram, x: torch.Tensor, m_active, apply) -> torch.Tensor:
+def _run(program: BinArrayProgram, x: torch.Tensor, m_active, apply,
+         traced: bool = False) -> torch.Tensor:
     _check_input(program, x)
     y = x.to(torch.float32)
-    for instr, m in zip(program.instrs, program.resolve_schedule(m_active)):
-        y = apply(instr, y, m)
+    for i, (instr, m) in enumerate(zip(program.instrs,
+                                       program.resolve_schedule(m_active))):
+        if traced:
+            with tracing.span(f"executor.{instr.name or i}"):
+                y = apply(instr, y, m)
+        else:
+            y = apply(instr, y, m)
     return y
 
 
 def execute(program: BinArrayProgram, x: torch.Tensor, m_active=None) -> torch.Tensor:
     """Run the program on a batch: x [B, H, W, C] -> logits [B, classes]."""
-    return _run(program, x, m_active, _apply)
+    if not tracing.enabled():
+        return _run(program, x, m_active, _apply)
+    with tracing.span("executor.execute"):
+        return _run(program, x, m_active, _apply, traced=True)
 
 
 def execute_reference(program: BinArrayProgram, x: torch.Tensor,

@@ -26,7 +26,11 @@ Each batch is staged on the host, zero-padded to ``batch_size``, copied to
 the program's device, executed, screened with one ``isfinite`` reduction
 and copied back once; every answer is bit-exact against ``deploy.execute``
 on the same padded batch at the same schedule (``last_batch`` /
-``last_schedule`` expose the pair).  ``clock``/``sleep`` are injectable
+``last_schedule`` expose the pair).  While a torch profiler records, each
+step is the span ``serve.step`` over ``serve.assemble``, ``serve.h2d``,
+the executor's ``executor.execute``, ``serve.screen`` (one per attempt
+that reached it) and ``serve.d2h`` (``repro_torch.tracing``).
+``clock``/``sleep`` are injectable
 (tests pass ``testing.faults.ManualClock``), and the default path looks up
 ``repro_torch.deploy.executor.execute`` at call time, so the fault
 injector's patch (``testing.faults.inject_faults``) reaches it while
@@ -50,6 +54,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint.manager import _flatten_with_paths, _unflatten
 from repro_torch.deploy.program import BinArrayProgram
 from repro_torch.serve_cnn.slo import SLOConfig, SLOController, default_ladder
@@ -249,26 +254,32 @@ class CNNService:
         step (done, failed, or shed at dispatch).  The watchdog (when
         configured) runs before batch assembly, so a corrupt program is
         replaced before it can answer this step's requests."""
+        with tracing.span("serve.step"):
+            return self._step()
+
+    def _step(self) -> list[ImageRequest]:
         if self.selftest_every is not None:
             self._watchdog()
         finished: list[ImageRequest] = []
         batch: list[ImageRequest] = []
-        while self.queue and len(batch) < self.batch_size:
-            req = self.queue.popleft()
-            if req.deadline_s is not None and req.deadline_s <= self.clock():
-                finished.append(self._shed(req, "deadline_expired"))
-                continue
-            batch.append(req)
-        if not batch:
-            return finished
+        with tracing.span("serve.assemble"):
+            while self.queue and len(batch) < self.batch_size:
+                req = self.queue.popleft()
+                if req.deadline_s is not None and req.deadline_s <= self.clock():
+                    finished.append(self._shed(req, "deadline_expired"))
+                    continue
+                batch.append(req)
+            if not batch:
+                return finished
 
-        rung = self.controller.rung
-        sched = self.controller.schedule
-        shape = (self.batch_size,) + tuple(self.program.input_shape[1:])
-        x_np = np.zeros(shape, np.float32)
-        for i, req in enumerate(batch):
-            x_np[i] = req.image
-        x = torch.from_numpy(x_np).to(self.program.device)
+            rung = self.controller.rung
+            sched = self.controller.schedule
+            shape = (self.batch_size,) + tuple(self.program.input_shape[1:])
+            x_np = np.zeros(shape, np.float32)
+            for i, req in enumerate(batch):
+                x_np[i] = req.image
+        with tracing.span("serve.h2d"):
+            x = torch.from_numpy(x_np).to(self.program.device)
         if self.mesh_plan is not None:
             rung, sched = self._follow_rank0(x, rung, sched)
 
@@ -276,11 +287,14 @@ class CNNService:
         for attempt in range(self.max_retries + 1):
             try:
                 y = self._execute(x, sched)
-                if not torch.isfinite(y).all().item():
+                with tracing.span("serve.screen"):
+                    finite = torch.isfinite(y).all().item()
+                if not finite:
                     self._stats["nonfinite_detected"] += 1
                     raise NonFiniteOutput(
                         f"non-finite logits at rung {rung} (schedule {sched})")
-                out = y.cpu()
+                with tracing.span("serve.d2h"):
+                    out = y.cpu()
                 break
             except Exception as e:  # noqa: BLE001 — disposition by contract
                 # keep its repr, not the exception: its traceback holds this
