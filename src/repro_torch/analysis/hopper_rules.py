@@ -67,8 +67,10 @@ RULES: dict[str, Rule] = {r.id: r for r in [
     Rule("pool-rows", ERROR,
          "a conv block holds whole pool windows: pool^2 <= plan rows"),
     Rule("shared-memory", ERROR,
-         "a conv plan's dynamic shared memory (binary_conv.shared_bytes) "
-         "must fit one H100 block (232,448 bytes)"),
+         "a conv launch's dynamic shared memory must fit one H100 block "
+         "(232,448 bytes): the frozen plan's (binary_conv.shared_bytes), or "
+         "where C < 8 the direct path's halo tile and folded weights "
+         "(binary_conv.direct_plan, direct_shared_bytes)"),
     Rule("plan-noncanonical", WARN,
          "the plan differs from the pick compile makes for this layer "
          "(hand-built or stale)"),

@@ -184,7 +184,13 @@ def _verify_conv(program, instr: ConvInstr, idx: int, shape):
                f"{bck.ROWS}, cols one of {bck.COLS}")
     if pool * pool > rows:
         ck.add("pool-rows", f"a {pool}x{pool} window does not fit {rows} rows")
-    if rows > 0 and cols > 0 and bck.shared_bytes(instr.plan) > bck.SHMEM_LIMIT:
+    direct = bck.direct_plan(B, H, W, C, D, kh, kw, instr.stride, pool, (U, V))
+    if direct is not None:      # the launch runs the direct path, not the frozen plan
+        nbytes = bck.direct_shared_bytes(direct, K)
+        if nbytes > bck.SHMEM_LIMIT:
+            ck.add("shared-memory", f"direct path (C={C}) tile {direct} needs {nbytes} "
+                   f"bytes > {bck.SHMEM_LIMIT}")
+    elif rows > 0 and cols > 0 and bck.shared_bytes(instr.plan) > bck.SHMEM_LIMIT:
         ck.add("shared-memory", f"plan {tuple(instr.plan)} needs "
                f"{bck.shared_bytes(instr.plan)} bytes > {bck.SHMEM_LIMIT}")
     ck.canonical(ops.pick_conv_plan, B * U * V, D, pool)

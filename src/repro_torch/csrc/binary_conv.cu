@@ -26,7 +26,20 @@
 // three bf16 parts) costs 3 * m_active MMAs per MAC and a tolerance study
 // of its own.
 //
-// Design: a GEMM of rows = unpooled conv outputs by columns = output
+// Two paths.  Layers whose C fills packed bytes (C >= 8: MobileNet's
+// point-wise layers) run the GEMM below, bound by its FFMAs.  A layer with
+// C < 8 (CNN-A's conv1 and conv2, the stem) bounds differently: conv1
+// (1.33 G MACs at batch 1024) and conv2 (3.98 G) by operations, 39.6 and
+// 118.8 us; the stem at batch 128 by bytes, 77 MB in and 205 MB out, 84 us.
+// The GEMM wastes most of that on them: its column tile pads D = 5 to 32,
+// every block re-gathers its im2col tile 4 bytes at a time and refolds
+// the weights per 32-k chunk, one element at a time.  Those layers take
+// the direct path (binary_conv_kernel_direct, below), which stages each
+// input pixel once per block, folds once per block, and issues the useful
+// FFMAs plus a ragged edge: no padded columns, and at stride 1 one pixel
+// load per tap column from a ring of registers.
+//
+// Design of the GEMM: rows = unpooled conv outputs by columns = output
 // channels, one BM x BN tile per block of 256 threads (16 x 16), each
 // thread a (BM/16) x (BN/16) register tile split into two halves per axis
 // so that shared loads do not collide (6 neighbouring rows on the 96-row
@@ -463,7 +476,382 @@ cudaError_t launch_rows(int rows, int cols, const Args& a, int64_t blocks, cudaS
   }
 }
 
+// ---------------------------------------------------------------------------
+// Direct path, for C < 8 (binary_conv_direct_launch).
+//
+// A block owns ni images by bu item rows (all column tiles) by ndg channel
+// groups of TD channels.  It stages the input its outputs read, with the
+// halo, once: sh rows of sw columns per image, each pixel padded to CP
+// floats so a pixel is one or two 16-byte loads (cells outside x staged as
+// zero: the SAME border).  It folds the levels of its groups' weights once,
+// for all of K, into wf[k][g][8] (TD <= 8 floats used), with the GEMM
+// path's rule: w = 0, then w = __fadd_rn(w, +-alpha[m, k / gs, d]) for m in
+// order.  A thread's item is a pool window's rows by DCOLS neighbouring
+// columns (nw whole windows) by TD channels, computed a row at a time.  At
+// stride 1 the row's pixels sit in a ring of DCOLS registers, so a tap
+// column costs one pixel load for DCOLS * C * TD FFMAs; at other strides
+// the DCOLS pixels are loaded per tap.  Items run channel group fastest,
+// so a group of ndg lanes reads the same pixels (a broadcast) and
+// neighbouring weights.  Each output is one fmaf chain from 0 in
+// k = (i*kw + j)*C + c order, then __fadd_rn(acc, bias): the GEMM path's
+// bits.  The pool's max runs over rows, then over each window's columns;
+// an output is never -0 (acc starts at +0 and rounds to nearest) and fmaxf
+// drops NaN, so that order gives the GEMM path's max.  ReLU, one write.
+// ---------------------------------------------------------------------------
+
+constexpr int DCOLS = 6;       // unpooled outputs per thread along a row
+constexpr int DTHREADS = 256;  // most threads of a block
+constexpr int SHMEM_LIMIT = 232448;
+
+struct DArgs {
+  const float* x;
+  const uint8_t* wp;
+  const float* alpha;
+  const float* bias;
+  float* out;
+  int B, H, W, C, D, kh, kw, stride, pt, pl, pool, Uo, Vo, T, G, gs, m_active, relu;
+  int rows, nw, nt, item_rows, ndg, bu, nbands, ni, sh, sw;
+};
+
+__host__ __device__ inline size_t direct_bytes(int ni, int sh, int sw, int cp, int K, int ndg) {
+  return sizeof(float) * ((size_t)ni * sh * sw * cp + (size_t)K * ndg * 8);
+}
+
+// the first C floats of a staged pixel (the rest are never read)
+template <int CP>
+__device__ __forceinline__ void load_px(const float* p, int C, float (&v)[CP]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  if constexpr (CP == 8) {
+    if (C == 5) {
+      v[4] = p[4];
+    } else if (C == 6) {
+      const float2 hi = *reinterpret_cast<const float2*>(p + 4);
+      v[4] = hi.x; v[5] = hi.y;
+    } else {
+      const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+      v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+    }
+  }
+}
+
+template <int TD>
+__device__ __forceinline__ void load_w(const float* p, float (&w)[TD]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
+  if constexpr (TD == 8) {
+    const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+    w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
+  } else {
+    w[4] = p[4];
+  }
+}
+
+// One staged row i of a thread's DCOLS outputs, taps j = 0 .. kw - 1 and
+// channels c < C in that order, at stride 1: a ring of DCOLS pixels in
+// registers, output p reading pixel p + j from slot (p + j) % DCOLS, so a
+// tap column costs one pixel load (the next tap's last pixel, into the
+// slot tap j's first pixel left).  The j loop runs in steps of DCOLS so
+// every slot index is known at compile time.
+template <int CP, int TD>
+__device__ __forceinline__ void conv_row_ring(float (&acc)[DCOLS][TD], const float* xr,
+                                              const float* wi, int kw, int C, int ldw) {
+  float ring[DCOLS][CP];
+#pragma unroll
+  for (int q = 0; q < DCOLS; ++q) load_px<CP>(xr + q * CP, C, ring[q]);
+  for (int j0 = 0; j0 < kw; j0 += DCOLS) {
+#pragma unroll
+    for (int jj = 0; jj < DCOLS; ++jj) {
+      const int j = j0 + jj;
+      if (j >= kw) break;
+      const float* wk = wi + j * C * ldw;
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        if (c >= C) break;
+        float w[TD];
+        load_w<TD>(wk + c * ldw, w);
+#pragma unroll
+        for (int p = 0; p < DCOLS; ++p)
+#pragma unroll
+          for (int d = 0; d < TD; ++d)
+            acc[p][d] = fmaf(ring[(p + jj) % DCOLS][c], w[d], acc[p][d]);
+      }
+      if (j + 1 < kw) load_px<CP>(xr + (DCOLS + j) * CP, C, ring[jj]);
+    }
+  }
+}
+
+// The same at any stride: output p reads pixel p * stride + j, loaded per tap.
+template <int CP, int TD>
+__device__ __forceinline__ void conv_row_load(float (&acc)[DCOLS][TD], const float* xr,
+                                              const float* wi, int kw, int C, int stride,
+                                              int ldw) {
+  for (int j = 0; j < kw; ++j) {
+    float xv[DCOLS][CP];
+#pragma unroll
+    for (int p = 0; p < DCOLS; ++p) load_px<CP>(xr + (p * stride + j) * CP, C, xv[p]);
+    const float* wk = wi + j * C * ldw;
+#pragma unroll
+    for (int c = 0; c < CP; ++c) {
+      if (c >= C) break;
+      float w[TD];
+      load_w<TD>(wk + c * ldw, w);
+#pragma unroll
+      for (int p = 0; p < DCOLS; ++p)
+#pragma unroll
+        for (int d = 0; d < TD; ++d) acc[p][d] = fmaf(xv[p][c], w[d], acc[p][d]);
+    }
+  }
+}
+
+// pool 1: bias, ReLU and the write of row u's columns v0 .. v0 + DCOLS - 1
+template <int TD>
+__device__ __forceinline__ void write_row(const DArgs& a, const float (&acc)[DCOLS][TD],
+                                          const float (&bs)[TD], int b, int u, int v0,
+                                          int d0) {
+  float* o = a.out + (((int64_t)b * a.Uo + u) * a.Vo + v0) * a.D + d0;
+  const bool vec = TD == 8 && (a.D & 3) == 0 && d0 + 8 <= a.D;
+#pragma unroll
+  for (int p = 0; p < DCOLS; ++p) {
+    if (v0 + p >= a.Vo) break;
+    float v[TD];
+#pragma unroll
+    for (int d = 0; d < TD; ++d) {
+      v[d] = __fadd_rn(acc[p][d], bs[d]);
+      if (a.relu) v[d] = fmaxf(v[d], 0.f);
+    }
+    if constexpr (TD == 8) {
+      if (vec) {
+        float4* o4 = reinterpret_cast<float4*>(o + (int64_t)p * a.D);
+        o4[0] = make_float4(v[0], v[1], v[2], v[3]);
+        o4[1] = make_float4(v[4], v[5], v[6], v[7]);
+        continue;
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < TD; ++d)
+      if (d0 + d < a.D) o[(int64_t)p * a.D + d] = v[d];
+  }
+}
+
+// At most 128 registers a thread (two blocks of DTHREADS an SM): conv1 ran
+// 3.7x faster on the H100 with this cap than with the compiler's own choice.
+template <int CP, int TD, bool POOL>
+__global__ void __launch_bounds__(DTHREADS, 2) binary_conv_kernel_direct(const DArgs a) {
+  extern __shared__ float4 dsmem4[];
+  float* xs = reinterpret_cast<float*>(dsmem4);               // [ni][sh][sw][CP]
+  float* wf = xs + (size_t)a.ni * a.sh * a.sw * CP;           // [K][ndg][8]
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int band = blockIdx.x % a.nbands;
+  const int b0 = (blockIdx.x / a.nbands) * a.ni;
+  const int r0 = band * a.bu * a.rows;  // the band's first unpooled row
+  const int h0 = r0 * a.stride - a.pt;  // input row of staged row 0; staged column sc is sc - pl
+  const int dg0 = blockIdx.y * a.ndg;
+  const int ldw = a.ndg * 8;            // floats from one k to the next in wf
+
+  // Stage: one warp a staged row, its lanes along the row's pixels, each
+  // channel a 4-byte copy (a warp reads one contiguous run of x per
+  // channel; a cell outside x copies nothing and reads zero).
+  {
+    const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
+    for (int r = warp; r < a.ni * a.sh; r += nwarps) {
+      const int im = r / a.sh, sr = r - im * a.sh;
+      const int b = b0 + im, h = h0 + sr;
+      const bool rin = b < a.B && (unsigned)h < (unsigned)a.H;
+      const int64_t row = ((int64_t)b * a.H + h) * a.W;
+      float* dst = xs + (size_t)r * a.sw * CP;
+      for (int sc = lane; sc < a.sw; sc += 32) {
+        const int w = sc - a.pl;
+        const bool in = rin && (unsigned)w < (unsigned)a.W;
+        for (int c = 0; c < a.C; ++c)
+          cp_async4(dst + sc * CP + c, in ? a.x + (row + w) * a.C + c : a.x, in ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  }
+
+  // Fold, while the copies land: byte (m, t, d) of the packed taps holds
+  // channel c of tap t in bit c.
+  for (int e = tid; e < a.T * a.ndg * TD; e += nthr) {
+    const int dd = e % TD, rest = e / TD;
+    const int g = rest % a.ndg, t = rest / a.ndg;
+    const int d = (dg0 + g) * TD + dd;
+    float* dst = wf + ((size_t)t * a.C * a.ndg + g) * 8 + dd;
+    unsigned bits[MAX_LEVELS];
+    float al[MAX_LEVELS];  // alpha[m, g, d] of the group g of k = t*C + c, loaded once a group
+    int g_al = (t * a.C) / a.gs;
+    const bool dok = d < a.D;
+#pragma unroll
+    for (int m = 0; m < MAX_LEVELS; ++m) {
+      const bool mok = m < a.m_active && dok;
+      bits[m] = mok ? a.wp[((int64_t)m * a.T + t) * a.D + d] : 0u;
+      al[m] = mok ? __ldg(a.alpha + ((int64_t)m * a.G + g_al) * a.D + d) : 0.f;
+    }
+    for (int c = 0; c < a.C; ++c) {
+      if (dok && (t * a.C + c) / a.gs != g_al) {
+        ++g_al;
+#pragma unroll
+        for (int m = 0; m < MAX_LEVELS; ++m)
+          if (m < a.m_active) al[m] = __ldg(a.alpha + ((int64_t)m * a.G + g_al) * a.D + d);
+      }
+      float w = 0.f;
+#pragma unroll
+      for (int m = 0; m < MAX_LEVELS; ++m)
+        if (m < a.m_active) w = __fadd_rn(w, (bits[m] >> c) & 1u ? al[m] : -al[m]);
+      dst[(size_t)c * ldw] = dok ? w : 0.f;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int nitems = a.ni * a.bu * a.nt * a.ndg;
+  // items: channel group fastest, then column tile, item row, image, so the
+  // threads of a group of ndg lanes read the same pixels and neighbouring
+  // weights
+  for (int it = tid; it < nitems; it += nthr) {
+    const int g = it % a.ndg;
+    int rest = it / a.ndg;
+    const int ct = rest % a.nt;
+    rest /= a.nt;
+    const int ir = rest % a.bu, im = rest / a.bu;
+    const int b = b0 + im;
+    if (b >= a.B || band * a.bu + ir >= a.item_rows) continue;
+    const int d0 = (dg0 + g) * TD;
+    const int u0 = r0 + ir * a.rows;       // the item's first unpooled row
+    const int v0 = ct * a.nw * a.pool;     // and column
+    const float* xim = xs + ((size_t)im * a.sh + (size_t)ir * a.rows * a.stride) * a.sw * CP +
+                       (size_t)v0 * a.stride * CP;
+    const float* wg = wf + g * 8;
+    float bs[TD];
+#pragma unroll
+    for (int d = 0; d < TD; ++d) bs[d] = d0 + d < a.D ? __ldg(a.bias + d0 + d) : 0.f;
+    float cmax[POOL ? DCOLS : 1][TD];
+    for (int r = 0; r < a.rows; ++r) {
+      float acc[DCOLS][TD];
+#pragma unroll
+      for (int p = 0; p < DCOLS; ++p)
+#pragma unroll
+        for (int d = 0; d < TD; ++d) acc[p][d] = 0.f;
+      for (int i = 0; i < a.kh; ++i) {
+        const float* xr = xim + (size_t)(r * a.stride + i) * a.sw * CP;
+        const float* wi = wg + (size_t)i * a.kw * a.C * ldw;
+        if (a.stride == 1)
+          conv_row_ring<CP, TD>(acc, xr, wi, a.kw, a.C, ldw);
+        else
+          conv_row_load<CP, TD>(acc, xr, wi, a.kw, a.C, a.stride, ldw);
+      }
+      if constexpr (POOL) {  // bias, then the running max over the window's rows
+#pragma unroll
+        for (int p = 0; p < DCOLS; ++p)
+#pragma unroll
+          for (int d = 0; d < TD; ++d) {
+            const float v = __fadd_rn(acc[p][d], bs[d]);
+            cmax[p][d] = r == 0 ? v : fmaxf(cmax[p][d], v);
+          }
+      } else {
+        write_row<TD>(a, acc, bs, b, u0 + r, v0, d0);
+      }
+    }
+    if constexpr (POOL) {  // the max over each window's columns, ReLU, one write
+      float* o = a.out + (((int64_t)b * a.Uo + u0 / a.pool) * a.Vo) * a.D + d0;
+#pragma unroll
+      for (int q = 0; q < DCOLS; ++q) {
+        const int vo = ct * a.nw + q;
+        if (q < a.nw && vo < a.Vo) {
+          float best[TD];
+#pragma unroll
+          for (int d = 0; d < TD; ++d) best[d] = cmax[0][d];
+#pragma unroll
+          for (int p = 0; p < DCOLS; ++p) {
+            const bool first = p == q * a.pool;
+            const bool in = p >= q * a.pool && p < (q + 1) * a.pool;
+#pragma unroll
+            for (int d = 0; d < TD; ++d)
+              best[d] = first ? cmax[p][d] : in ? fmaxf(best[d], cmax[p][d]) : best[d];
+          }
+#pragma unroll
+          for (int d = 0; d < TD; ++d)
+            if (d0 + d < a.D) o[(int64_t)vo * a.D + d] = a.relu ? fmaxf(best[d], 0.f) : best[d];
+        }
+      }
+    }
+  }
+}
+
+template <int CP, int TD, bool POOL>
+cudaError_t launch_direct(const DArgs& a, dim3 grid, int threads, size_t shmem,
+                          cudaStream_t stream) {
+  const auto kernel = binary_conv_kernel_direct<CP, TD, POOL>;
+  static unsigned raised = 0;  // devices whose shared-memory limit was raised
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev >= 32 || !(raised >> dev & 1u)) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SHMEM_LIMIT);
+    if (rc != cudaSuccess) return rc;
+    if (dev < 32) raised |= 1u << dev;
+  }
+  kernel<<<grid, threads, shmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int CP, int TD>
+cudaError_t launch_direct_pool(const DArgs& a, dim3 grid, int threads, size_t shmem,
+                               cudaStream_t s) {
+  return a.pool > 1 ? launch_direct<CP, TD, true>(a, grid, threads, shmem, s)
+                    : launch_direct<CP, TD, false>(a, grid, threads, shmem, s);
+}
+
 }  // namespace
+
+// The direct path (C < 8), with the tile of kernels/binary_conv.py
+// direct_plan: td channels per thread (5 or 8), nt column tiles, bu item
+// rows and ni images per block, ndg channel groups per block in nds
+// slices, nbands bands of item rows; the other arguments as in
+// binary_conv_launch.  Returns cudaErrorInvalidValue for a tile that does
+// not cover the output or does not fit shared memory.
+extern "C" int binary_conv_direct_launch(const void* x, const void* wp, const void* alpha,
+                                         const void* bias, void* out, int B, int H, int W,
+                                         int C, int D, int M, int kh, int kw, int stride,
+                                         int pt, int pl, int pool, int Uo, int Vo, int G,
+                                         int group_size, int m_active, int relu, int td,
+                                         int nt, int bu, int ni, int ndg, int nds,
+                                         int nbands, void* stream) {
+  if (C < 1 || C >= 8 || m_active < 1 || m_active > MAX_LEVELS || m_active > M ||
+      pool < 1 || pool > DCOLS || (td != 5 && td != 8) || nt < 1 || bu < 1 || ni < 1 ||
+      ndg < 1 || nds < 1 || nbands < 1)
+    return (int)cudaErrorInvalidValue;
+  DArgs a;
+  a.x = (const float*)x;
+  a.wp = (const uint8_t*)wp;
+  a.alpha = (const float*)alpha;
+  a.bias = (const float*)bias;
+  a.out = (float*)out;
+  a.B = B; a.H = H; a.W = W; a.C = C; a.D = D; a.kh = kh; a.kw = kw; a.stride = stride;
+  a.pt = pt; a.pl = pl; a.pool = pool; a.Uo = Uo; a.Vo = Vo; a.T = kh * kw; a.G = G;
+  a.gs = group_size; a.m_active = m_active; a.relu = relu;
+  a.rows = pool > 1 ? pool : 1;
+  a.nw = DCOLS / pool;
+  a.nt = nt;
+  a.item_rows = Uo;
+  a.ndg = ndg; a.bu = bu; a.nbands = nbands; a.ni = ni;
+  a.sh = (bu * a.rows - 1) * stride + kh;
+  a.sw = ((nt - 1) * a.nw * pool + DCOLS - 1) * stride + kw;
+  const int cp = C <= 4 ? 4 : 8;
+  const size_t shmem = direct_bytes(ni, a.sh, a.sw, cp, a.T * C, ndg);
+  if (shmem > (size_t)SHMEM_LIMIT || (int64_t)nt * a.nw < Vo || (int64_t)nbands * bu < a.item_rows ||
+      (int64_t)nds * ndg * td < D)
+    return (int)cudaErrorInvalidValue;
+  const int64_t items = (int64_t)ni * bu * nt * ndg;
+  const int threads = (int)(items >= DTHREADS ? DTHREADS : (items + 31) / 32 * 32);
+  const dim3 grid((unsigned)(((int64_t)B + ni - 1) / ni * nbands), (unsigned)nds);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (cp == 4)
+    return (int)(td == 8 ? launch_direct_pool<4, 8>(a, grid, threads, shmem, s)
+                         : launch_direct_pool<4, 5>(a, grid, threads, shmem, s));
+  return (int)(td == 8 ? launch_direct_pool<8, 8>(a, grid, threads, shmem, s)
+                       : launch_direct_pool<8, 5>(a, grid, threads, shmem, s));
+}
 
 // x [B, H, W, C] f32 (unpadded), wp [M, kh*kw, ceil(C/8), D] u8,
 // alpha [M, G, D] f32, bias [D] f32, out [B, Uo, Vo, D] f32, all contiguous

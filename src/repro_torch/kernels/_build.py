@@ -94,12 +94,12 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, argtypes: list, *args) -> None:
-    """Call ``<name>_launch(*args)`` from ``csrc/<name>.cu`` and raise on the
-    ``cudaError_t`` it returns (a refused launch never runs, and a later
-    ``torch.cuda.synchronize()`` would not report it)."""
+def launch(name: str, argtypes: list, *args, entry: str | None = None) -> None:
+    """Call ``<name>_launch(*args)`` (or ``entry``) from ``csrc/<name>.cu`` and
+    raise on the ``cudaError_t`` it returns (a refused launch never runs, and
+    a later ``torch.cuda.synchronize()`` would not report it)."""
     lib = load(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, entry or f"{name}_launch")
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     rc = fn(*args)

@@ -53,6 +53,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+    bck.direct_launches = 0
 
 
 def _cdiv(a: int, b: int) -> int:

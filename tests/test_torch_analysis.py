@@ -102,6 +102,25 @@ def test_each_rule_flags_a_hand_broken_program(nets, rule):
     assert summarize(findings)["by_rule"][rule] >= 1
 
 
+def test_shared_memory_counts_the_direct_path_where_c_is_under_8(nets, monkeypatch):
+    """CNN-A's conv1 and conv2 (C = 3, 5) launch the direct path, so their
+    frozen GEMM plan's bytes are not what the rule counts (an oversized plan
+    trips plan-range alone); a direct tile that does not fit is flagged
+    (seeded: the launcher's rule made to stage 64 images per block)."""
+    from repro_torch.kernels import binary_conv as bck
+
+    big = _with(nets["cnn_a"], 0, plan=deploy.TilePlan(512, 32))
+    assert {f.rule for f in verify_program(big)} == {"plan-range", "plan-noncanonical"}
+    pick = bck.direct_plan
+    monkeypatch.setattr(bck, "direct_plan", lambda *a: pick(*a) and pick(*a)._replace(ni=64))
+    findings = [f for f in verify_program(nets["cnn_a"]) if f.rule == "shared-memory"]
+    assert [(f.instr, f.severity) for f in findings] == [("conv1", "ERROR"), ("conv2", "ERROR")]
+    assert all("direct path" in f.message for f in findings)
+    with pytest.raises(ProgramVerificationError, match="shared-memory"):
+        assert_verified(nets["cnn_a"])
+    assert verify_program(nets["mobilenet"])[0].instr == "stem"
+
+
 def test_alignment_of_the_conv_packed_bytes(nets):
     program = nets["mobilenet"]
     tap = program.instrs[2].B_tap_packed

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import deploy
 from repro_torch.core import binarize as bz
+from repro_torch.core.binconv import conv_geometry
 from repro_torch.core.binlinear import QuantConfig
 from repro_torch.kernels import binary_conv as bck
 from repro_torch.kernels import binary_dwconv as bdw
@@ -72,8 +73,20 @@ def test_binary_matmul_kernel_matches_plain(card, T, K, N, M, group_size, m_acti
 CONV_PLANS = ((128, 128), (64, 32), (96, 128), (128, 64), (64, 128), (96, 32), (128, 32))
 
 
+def _gemm_path(x, tap, alpha, bias, *, kh, kw, stride, padding, pool, m_active, relu,
+               plan):
+    """The GEMM kernel at a layer where the launcher would take the direct path."""
+    B, H, W, _ = x.shape
+    pads, out_hw = conv_geometry(H, W, kh, kw, stride, padding)
+    return bck.launch(x, tap, alpha, bias, kh=kh, kw=kw, stride=stride, pads=pads,
+                      out_hw=out_hw, pool=pool, m_active=min(m_active or tap.shape[0],
+                                                             tap.shape[0]),
+                      relu=relu, plan=plan, gemm=True)
+
+
 @pytest.mark.parametrize("B,H,W,C,D,kh,kw,stride,padding,pool,M,m_active,relu,group_size", [
     (5, 48, 48, 3, 5, 7, 7, 1, "VALID", 2, 2, None, True, None),    # conv1
+    (1024, 48, 48, 3, 5, 7, 7, 1, "VALID", 2, 2, None, True, None),  # conv1 at the cell's batch
     (3, 21, 21, 5, 150, 4, 4, 1, "VALID", 6, 2, 1, True, None),     # conv2
     (7, 21, 21, 5, 43, 4, 4, 1, "VALID", 6, 2, None, False, None),  # pool 6, ragged batch, D = 43
     (3, 224, 224, 3, 32, 3, 3, 2, "SAME", 1, 2, None, True, None),  # stem
@@ -86,6 +99,9 @@ CONV_PLANS = ((128, 128), (64, 32), (96, 128), (128, 64), (64, 128), (96, 32), (
     (1, 6, 6, 12, 9, 1, 1, 1, "VALID", 1, 2, None, False, 6)])
 def test_binary_conv_kernel_matches_plain(card, B, H, W, C, D, kh, kw, stride, padding,
                                           pool, M, m_active, relu, group_size):
+    """Every plan gives the same bits; a layer with C < 8 takes the direct
+    path (``direct_launches``), which gives the GEMM path's bits at every
+    plan."""
     gen = torch.Generator().manual_seed(B * H * C + D)
     K = kh * kw * C
     gs = group_size or K
@@ -96,18 +112,25 @@ def test_binary_conv_kernel_matches_plain(card, B, H, W, C, D, kh, kw, stride, p
     kw_ = dict(kh=kh, kw=kw, stride=stride, padding=padding, pool=pool,
                m_active=m_active, relu=relu)
     want = ref.fused_binary_conv_relu_pool_ref(x, tap, alpha, bias=bias, **kw_)
-    before = ops.launch_counts()["binary_conv"]
+    before, direct_before = ops.launch_counts()["binary_conv"], bck.direct_launches
     outs = [ops.binary_conv2d(x, tap, alpha, bias, plan=plan, **kw_) for plan in CONV_PLANS]
     torch.cuda.synchronize()
     assert ops.launch_counts()["binary_conv"] - before == len(CONV_PLANS)
+    assert bck.direct_launches - direct_before == (len(CONV_PLANS) if C < 8 else 0)
     torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
     for out in outs[1:]:
         assert torch.equal(outs[0], out)
+    if C < 8:
+        for plan in CONV_PLANS:
+            assert torch.equal(outs[0], _gemm_path(x, tap, alpha, bias, plan=plan, **kw_))
+        torch.cuda.synchronize()
+        assert bck.direct_launches - direct_before == len(CONV_PLANS)
 
 
 @pytest.mark.parametrize("m_active", [1, 2, 3])
 def test_binary_conv_kernel_folds_every_level_count(card, m_active):
-    """M = 3 packed levels, each m_active 1..3, groups that span taps."""
+    """M = 3 packed levels, each m_active 1..3, groups that span taps; the
+    direct path (C = 5) against the GEMM path at every plan."""
     gen = torch.Generator().manual_seed(m_active)
     B, H, W, C, D, M = 3, 10, 10, 5, 43, 3
     K = 3 * 3 * C
@@ -118,10 +141,42 @@ def test_binary_conv_kernel_folds_every_level_count(card, m_active):
     kw_ = dict(kh=3, kw=3, stride=1, padding="SAME", pool=2, m_active=m_active)
     want = ref.fused_binary_conv_relu_pool_ref(x, tap, alpha, bias=bias, **kw_)
     outs = [ops.binary_conv2d(x, tap, alpha, bias, plan=plan, **kw_) for plan in CONV_PLANS]
+    outs += [_gemm_path(x, tap, alpha, bias, plan=plan, relu=True, **kw_)
+             for plan in CONV_PLANS]
     torch.cuda.synchronize()
     torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
     for out in outs[1:]:
         assert torch.equal(outs[0], out)
+
+
+@pytest.mark.parametrize("B,H,W,C,D,kh,kw,stride,padding,pool", [
+    (16, 224, 224, 3, 32, 3, 3, 2, "SAME", 1),     # the stem at the serve cell's batch
+    (128, 224, 224, 3, 32, 3, 3, 2, "SAME", 1),    # and at the offline cells'
+    (64, 21, 21, 5, 150, 4, 4, 1, "VALID", 6),     # conv2 at batch 64
+    (3, 11, 11, 7, 6, 5, 3, 2, "SAME", 3),         # C = 7, kh != kw, stride 2 and pool 3
+    (2, 13, 13, 1, 16, 2, 2, 1, "VALID", 4),       # C = 1, pool 4: one window in a thread's 6 columns
+    (4, 10, 10, 4, 9, 3, 3, 1, "SAME", 5),         # C = 4, pool 5, D = 9
+])
+def test_direct_path_gives_the_gemm_paths_bits(card, B, H, W, C, D, kh, kw, stride, padding,
+                                               pool):
+    """Shapes the hand-built networks reach at other batches, and shapes
+    only fuzzing reaches (C = 1, 4, 7; pools 3, 4, 5): the direct path
+    against the GEMM path, bit for bit, and against the plain version."""
+    gen = torch.Generator().manual_seed(B + H + C * D)
+    K = kh * kw * C
+    x = torch.randn(B, H, W, C, generator=gen).to(card)
+    tap = bck.pack_taps(_signs(gen, (2, K, D)), kh, kw, C).to(card)
+    alpha = _alpha(gen, (2, 1, D)).to(card)
+    bias = torch.randn(D, generator=gen).to(card)
+    kw_ = dict(kh=kh, kw=kw, stride=stride, padding=padding, pool=pool, m_active=None,
+               relu=True)
+    direct_before = bck.direct_launches
+    got = ops.binary_conv2d(x, tap, alpha, bias, **kw_)
+    torch.cuda.synchronize()
+    assert bck.direct_launches - direct_before == 1
+    assert torch.equal(got, _gemm_path(x, tap, alpha, bias, plan=(128, 32), **kw_))
+    want = ref.fused_binary_conv_relu_pool_ref(x, tap, alpha, bias=bias, **kw_)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("P,C,D", [(3136 * 2 + 5, 512, 512), (7 * 7 * 3, 1024, 1000),
@@ -180,6 +235,7 @@ def test_cnn_a_program_runs_its_kernels(card):
         got = deploy.execute(program, x, m)
         torch.cuda.synchronize()
         assert ops.launch_counts() == {"binary_conv": 2, "binary_dwconv": 0, "binary_matmul": 3}
+        assert bck.direct_launches == 2        # conv1 (C = 3) and conv2 (C = 5)
         assert ops.plan_pick_count() == picks
         want = deploy.execute_reference(program, x, m)
         scale = max(1.0, float(want.abs().max()))

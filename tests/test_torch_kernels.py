@@ -510,3 +510,206 @@ def test_conv_border_mask_reads_what_pad_nhwc_pads(H, W, k, stride, padding, poo
             got = torch.where(inside[:, None], x[b, h.clamp(0, H - 1), w.clamp(0, W - 1)],
                               torch.zeros(()))
             assert torch.equal(got, xp[b, u * stride + i, v * stride + j])
+
+
+# --- the direct path (C < 8) -------------------------------------------------
+
+PROGRAM_SHAPES = [("cnn_a", (1, 48, 48, 3), 1.0), ("cnn_a", (64, 48, 48, 3), 1.0),
+                  ("cnn_a", (1024, 48, 48, 3), 1.0), ("mobilenet", (16, 224, 224, 3), 1.0),
+                  ("mobilenet", (128, 224, 224, 3), 1.0), ("mobilenet", (16, 128, 128, 3), 0.5),
+                  ("mobilenet", (128, 128, 128, 3), 0.5)]
+
+
+@pytest.mark.parametrize("arch,shape,width", PROGRAM_SHAPES)
+def test_direct_path_takes_exactly_the_layers_under_a_byte_of_channels(arch, shape, width):
+    """At every conv shape of CNN-A (batch 1, 64, 1024) and MobileNetV1
+    (1.0/224 and 0.5/128 at 16 and 128) the launcher's rule gives a direct
+    tile to each C < 8 layer (conv1, conv2, the stem) and to no other; the
+    tile covers the output, fits shared memory and launches whole warps,
+    and the verifier counts its bytes, not the frozen plan's."""
+    from repro_torch import deploy
+    from repro_torch.analysis import verify_program
+    from repro_torch.core.binlinear import QuantConfig
+    from repro_torch.deploy.program import ConvInstr
+
+    program = deploy.abstract_program(arch, QuantConfig(mode="binary", M=2), shape,
+                                      width_mult=width, device="cpu")
+    taken = []
+    for instr in program.instrs:
+        if not isinstance(instr, ConvInstr):
+            continue
+        B, H, W, C = instr.stats.in_shape
+        D = instr.B_tap_packed.shape[-1]
+        _, (U, V) = conv_geometry(H, W, instr.kh, instr.kw, instr.stride, instr.padding)
+        p = tbck.direct_plan(B, H, W, C, D, instr.kh, instr.kw, instr.stride, instr.pool,
+                             (U, V))
+        assert (p is not None) == (C < 8), (instr.name, C)
+        if p is None:
+            continue
+        taken.append(instr.name)
+        K = instr.kh * instr.kw * C
+        assert p.shared_bytes == tbck.direct_shared_bytes(p, K) <= tbck.SHMEM_LIMIT
+        assert p.threads % 32 == 0 and 32 <= p.threads <= tbck.DIRECT_THREADS
+        assert p.nt * p.nw >= V // instr.pool and p.nbands * p.bu >= p.item_rows
+        assert (p.nds - 1) * p.ndg * p.td < D <= p.nds * p.ndg * p.td
+        assert p.blocks * p.nds >= min(132, B * p.item_rows)     # every SM a block
+    assert taken == (["conv1", "conv2"] if arch == "cnn_a" else ["stem"])
+    assert not [f for f in verify_program(program) if f.rule == "shared-memory"]
+
+
+def test_direct_launch_count_is_reset_with_the_others():
+    tbck.direct_launches = 3
+    tops.reset_launch_counts()
+    assert tbck.direct_launches == 0
+
+
+DIRECT_CASES = [
+    # B, H, W, C, D, kh, kw, stride, padding, pool
+    (2, 48, 48, 3, 5, 7, 7, 1, "VALID", 2),      # conv1
+    (3, 21, 21, 5, 150, 4, 4, 1, "VALID", 6),    # conv2
+    (1, 224, 224, 3, 32, 3, 3, 2, "SAME", 1),    # the stem: pads (0, 0)
+    (2, 17, 15, 3, 43, 3, 3, 2, "SAME", 1),      # odd sizes: pads (1, 1)
+    (2, 8, 8, 5, 6, 4, 4, 1, "SAME", 2),         # CNN-A's even 4x4 SAME
+    (3, 11, 11, 7, 6, 5, 3, 2, "SAME", 3),       # C = 7, kh != kw
+    (2, 13, 13, 1, 16, 2, 2, 1, "VALID", 4),     # one window in a thread's columns
+    (5, 10, 10, 4, 9, 3, 3, 1, "SAME", 5),
+]
+
+
+def _staged(x, p, staged):
+    """The block's staged input as the kernel fills it: ``p.ni`` images of
+    ``p.sh`` x ``p.sw`` pixels from ``staged`` = (b0, h0, w0), zero outside x."""
+    B, H, W, C = x.shape
+    b0, h0, w0 = staged
+    out = torch.zeros(p.ni, p.sh, p.sw, C, dtype=x.dtype)
+    hs, ws = torch.arange(h0, h0 + p.sh), torch.arange(w0, w0 + p.sw)
+    inside = ((hs >= 0) & (hs < H))[:, None] & ((ws >= 0) & (ws < W))[None, :]
+    for im in range(min(p.ni, B - b0)):
+        got = x[b0 + im, hs.clamp(0, H - 1)][:, ws.clamp(0, W - 1)]
+        out[im] = torch.where(inside[..., None], got, torch.zeros(()))
+    return out
+
+
+@pytest.mark.parametrize("B,H,W,C,D,kh,kw,stride,padding,pool", DIRECT_CASES)
+def test_direct_blocks_stage_every_field_and_the_border_pad_nhwc_pads(
+        B, H, W, C, D, kh, kw, stride, padding, pool):
+    """Each output channel is computed by exactly one thread item; the
+    staged region of the item's block holds each of its outputs' receptive
+    fields, at the rows and columns the kernel reads them from, and there
+    it holds what ``pad_nhwc``'s padded copy holds (the SAME border zero)."""
+    (pt, pl), (U, V) = conv_geometry(H, W, kh, kw, stride, padding)
+    p = tbck.direct_plan(B, H, W, C, D, kh, kw, stride, pool, (U, V))
+    assert p is not None
+    x = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(H * W + C))
+    xp = pad_nhwc(x, kh, kw, stride, padding)
+    seen = torch.zeros(B, U, V, D, dtype=torch.int32)
+    ii, jj = torch.arange(kh), torch.arange(kw)
+    for (b0, h0, w0), items in tbck.direct_blocks(p, B, U, V, D, stride, pool, (pt, pl)):
+        stage = _staged(x, p, (b0, h0, w0))
+        rows = (torch.arange(p.sh) + h0 + pt).clamp(0, xp.shape[1] - 1)
+        cols = (torch.arange(p.sw) + w0 + pl).clamp(0, xp.shape[2] - 1)
+        for b, us, vs, ds in items:
+            seen[b, us[0]:us[-1] + 1, vs[0]:vs[-1] + 1, ds[0]:ds[-1] + 1] += 1
+            if ds[0] % (p.ndg * p.td):
+                continue                   # the fields do not depend on the channels
+            im = b - b0
+            for u in us:
+                r = u * stride - pt - h0 + ii     # the staged rows the kernel reads
+                assert r.min() >= 0 and r.max() < p.sh
+                for v in vs:
+                    c = v * stride - pl - w0 + jj
+                    assert c.min() >= 0 and c.max() < p.sw
+                    field = stage[im, r][:, c]
+                    assert torch.equal(field, xp[b, u * stride:u * stride + kh,
+                                                 v * stride:v * stride + kw])
+                    assert torch.equal(stage[im, r][:, c], xp[b, rows[r]][:, cols[c]])
+    assert (seen == 1).all()
+
+
+def _direct_folded_weights(tap, alpha, C, gs, m_active):
+    """The direct path's fold, in float64: byte (m, t, d) of the packed taps
+    holds channel c of tap t in bit c; ``w[k, d] = sum_m alpha[m, k // gs,
+    d] * (+-1)`` over k = t*C + c, levels in order."""
+    M, T, C8, D = tap.shape
+    assert C8 == 1
+    flat = tap.reshape(-1).numpy()
+    al = alpha.numpy().astype(np.float64)
+    w = np.zeros((T * C, D))
+    for m in range(m_active):
+        for t in range(T):
+            byte = flat[(m * T + t) * D:(m * T + t + 1) * D].astype(np.int64)
+            for c in range(C):
+                k = t * C + c
+                w[k] += al[m, k // gs] * np.where((byte >> c) & 1, 1.0, -1.0)
+    return w
+
+
+@pytest.mark.parametrize("B,H,W,C,D,kh,kw,stride,padding,pool", DIRECT_CASES[:2] + [
+    (2, 9, 9, 3, 8, 3, 3, 2, "SAME", 1), (2, 8, 8, 5, 6, 4, 4, 1, "SAME", 2),
+    (3, 11, 11, 7, 6, 5, 3, 2, "SAME", 3), (2, 13, 13, 1, 16, 2, 2, 1, "VALID", 4),
+    (5, 10, 10, 4, 9, 3, 3, 1, "SAME", 5)])
+def test_direct_path_fold_and_tile_walk_match_the_plain_version(
+        B, H, W, C, D, kh, kw, stride, padding, pool):
+    """The direct kernel's order of work, in float64: the levels folded per
+    (k, d) from the packed bytes, each item's sums over (i, j, c) read from
+    its block's staged tile, bias, the max over rows then over each
+    window's columns, ReLU, written to the item's pooled outputs; against
+    the plain version (M = 3, m_active 2, groups that span taps)."""
+    M, m = 3, 2
+    K = kh * kw * C
+    gs = next(g for g in (20, 10, 5, 1) if K % g == 0 and g <= K)
+    rng = np.random.default_rng(B * H + C * D)
+    x = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32))
+    tap = tbck.pack_taps(torch.from_numpy(_signs(rng, (M, K, D))), kh, kw, C)
+    alpha = torch.from_numpy(_alpha(rng, (M, K // gs, D)))
+    bias = torch.from_numpy(rng.standard_normal(D).astype(np.float32))
+    w = _direct_folded_weights(tap, alpha, C, gs, m)
+    B_pm = tbck.unpack_taps(tap, C).numpy().astype(np.float64)
+    np.testing.assert_allclose(w, np.einsum(
+        "mkd,mkd->kd", B_pm[:m], np.repeat(alpha.numpy().astype(np.float64), gs, axis=1)[:m]),
+        rtol=1e-12)
+    want = tref.fused_binary_conv_relu_pool_ref(
+        x, tap, alpha, kh=kh, kw=kw, stride=stride, padding=padding, pool=pool, m_active=m,
+        bias=bias, relu=True).numpy()
+    (pt, pl), (U, V) = conv_geometry(H, W, kh, kw, stride, padding)
+    p = tbck.direct_plan(B, H, W, C, D, kh, kw, stride, pool, (U, V))
+    got = np.full(want.shape, np.nan)
+    ii, jj = np.arange(kh), np.arange(kw)
+    for (b0, h0, w0), items in tbck.direct_blocks(p, B, U, V, D, stride, pool, (pt, pl)):
+        stage = _staged(x, p, (b0, h0, w0)).numpy().astype(np.float64)
+        for b, us, vs, ds in items:
+            r = np.array(us)[:, None] * stride - pt - h0 + ii          # [rows, kh]
+            c = np.array(vs)[:, None] * stride - pl - w0 + jj          # [cols, kw]
+            field = stage[b - b0][r[:, None, :, None], c[None, :, None, :]]
+            conv = field.reshape(len(us), len(vs), K) @ w[:, ds] + bias.numpy()[ds]
+            if pool == 1:                                              # two rows, no window
+                got[b, us[0]:us[-1] + 1, vs[0]:vs[-1] + 1, ds[0]:ds[-1] + 1] = np.maximum(conv, 0)
+                continue
+            colmax = conv.max(axis=0)                                  # over the rows
+            for q in range(len(vs) // pool):
+                best = colmax[q * pool:(q + 1) * pool].max(axis=0)     # over the window
+                got[b, us[0] // pool, vs[q * pool] // pool, ds] = np.maximum(best, 0)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kw", [1, 2, 3, 4, 5, 6, 7, 11, 13])
+def test_direct_ring_holds_each_outputs_pixel_at_every_tap(kw):
+    """The stride-1 ring of ``csrc/binary_conv.cu`` ``conv_row_ring``: slots
+    0 .. DIRECT_COLS - 1 start with pixels 0 .. DIRECT_COLS - 1; at tap j
+    (run in steps of DIRECT_COLS) output p reads slot (p + j) % DIRECT_COLS,
+    and after tap j pixel DIRECT_COLS + j goes into slot j % DIRECT_COLS.
+    Output p must read pixel p + j, and no pixel past the staged row's
+    DIRECT_COLS + kw - 1 is loaded."""
+    n = tbck.DIRECT_COLS
+    ring = list(range(n))
+    loaded = set(ring)
+    for j0 in range(0, kw, n):
+        for jj in range(n):
+            j = j0 + jj
+            if j >= kw:
+                break
+            assert [ring[(p + jj) % n] for p in range(n)] == [p + j for p in range(n)]
+            if j + 1 < kw:
+                ring[jj] = n + j
+                loaded.add(n + j)
+    assert loaded == set(range(n + kw - 1))
